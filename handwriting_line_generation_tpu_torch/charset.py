@@ -1,0 +1,66 @@
+"""Character sets and label <-> string codecs.
+
+A copy of ``handwriting_line_generation_tpu/charset.py``'s ``Charset`` and
+``IAM_CHARSET`` (the port imports nothing of the JAX package).  Index 0 is
+the CTC blank; characters are indexed from 1, so
+``num_class == len(chars) + 1``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Sequence
+
+import numpy as np
+
+# The 79 IAM characters in reference index order (index 1..79); blank is 0.
+IAM_CHARS = (
+    " !\"#&'()*+,-./0123456789:;?"
+    "ABCDEFGHIJKLMNOPQRSTUVWXYZ"
+    "abcdefghijklmnopqrstuvwxyz"
+)
+
+BLANK = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class Charset:
+    """Immutable charset with 0 reserved for the CTC blank."""
+
+    chars: str
+
+    @property
+    def num_class(self) -> int:
+        return len(self.chars) + 1
+
+    @property
+    def char_to_idx(self) -> Dict[str, int]:
+        return {c: i + 1 for i, c in enumerate(self.chars)}
+
+    @property
+    def idx_to_char(self) -> Dict[int, str]:
+        return {i + 1: c for i, c in enumerate(self.chars)}
+
+    def encode(self, text: str) -> np.ndarray:
+        """String -> int labels, silently dropping unknown characters."""
+        table = self.char_to_idx
+        return np.array([table[c] for c in text if c in table], dtype=np.int32)
+
+    def decode(self, label: Sequence[int], as_raw: bool = False,
+               blank_char: str = "~") -> str:
+        """Int labels -> string; stops at the first blank unless ``as_raw``."""
+        table = self.idx_to_char
+        out: List[str] = []
+        for v in label:
+            v = int(v)
+            if v == BLANK:
+                if as_raw:
+                    out.append(blank_char)
+                else:
+                    break
+            else:
+                out.append(table[v])
+        return "".join(out)
+
+
+IAM_CHARSET = Charset(IAM_CHARS)

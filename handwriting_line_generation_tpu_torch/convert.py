@@ -1,0 +1,144 @@
+"""flax ``HWWithStyle`` param tree -> this package's ``state_dict``.
+
+Covers the ``generator`` and ``spacer`` subtrees; the subtrees of modules
+not ported yet are skipped (:data:`SKIPPED_SUBTREES`) and any other key
+raises.  Layout rules:
+
+* Dense ``[in, out]`` -> Linear ``[out, in]``.
+* 2-D conv HWIO -> OIHW; 1-D conv ``[k, in, out]`` -> ``[out, in, k]``.
+* The generator's initial ``nn.ConvTranspose((4, 3), padding=((3, 3),
+  (1, 1)))`` has stride 1 and flax does not flip its kernel, so it is a
+  plain correlation of the padded input: OIHW, not flipped, run as
+  ``conv2d`` (``StyledConvBlock``).
+* ``FusedUpsample`` runs ``lax.conv_transpose`` (stride 2) unflipped, where
+  torch's ``conv_transpose2d`` flips: ``[in, out, kh, kw]``, spatially
+  flipped.
+* NoiseInjection ``[1, 1, 1, C]`` -> ``[C]``; GroupNorm ``scale`` -> weight.
+
+bfloat16 leaves (``ml_dtypes``) convert exactly through float32.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Mapping
+
+import numpy as np
+import torch
+
+# HWWithStyle subtrees whose modules this package does not port yet
+SKIPPED_SUBTREES = ("hwr", "style_extractor", "discriminator")
+
+
+def _tensor(a) -> torch.Tensor:
+    a = np.array(a)                  # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _dense(k):
+    return k.T
+
+
+def _conv(k):
+    return k.transpose(3, 2, 0, 1) if k.ndim == 4 else k.transpose(2, 1, 0)
+
+
+def _flipped_transpose(k):
+    return k.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+
+
+def _leaves(tree: Mapping, where: str, out: Dict[str, torch.Tensor],
+            prefix: str, rules: Dict[str, tuple]) -> None:
+    """``rules``: flax leaf name -> (torch name, layout fn); exact key set."""
+    if set(tree) != set(rules):
+        raise KeyError(f"{where}: expected keys {sorted(rules)}, got "
+                       f"{sorted(tree)}")
+    for name, (tname, fn) in rules.items():
+        out[prefix + tname] = _tensor(fn(np.asarray(tree[name])))
+
+
+def _ident(a):
+    return a
+
+
+def _layer(tree, where, out, prefix, kernel_fn: Callable = _conv):
+    _leaves(tree, where, out, prefix,
+            {"kernel": ("weight", kernel_fn), "bias": ("bias", _ident)})
+
+
+def _index(name: str, stem: str) -> int:
+    if not name.startswith(stem) or not name[len(stem):].isdigit():
+        raise KeyError(f"unexpected key {name!r} (want {stem}<n>)")
+    return int(name[len(stem):])
+
+
+def _block(tree: Mapping, where: str, out, p: str) -> None:
+    convs = {"ConvTranspose_0": "conv1", "FusedUpsample_0": "conv1"}
+    if "Conv_1" in tree:            # nearest upsample + conv, then conv2
+        convs.update(Conv_0="conv1", Conv_1="conv2")
+    else:
+        convs["Conv_0"] = "conv2"
+    for name, sub in tree.items():
+        w = f"{where}/{name}"
+        if name in convs:
+            fn = _flipped_transpose if name == "FusedUpsample_0" else _conv
+            _layer(sub, w, out, f"{p}{convs[name]}.", fn)
+        elif name in ("NoiseInjection_0", "NoiseInjection_1"):
+            _leaves(sub, w, out, f"{p}noise{int(name[-1]) + 1}.",
+                    {"weight": ("weight", lambda a: a.reshape(-1))})
+        elif name in ("AdaIN_0", "AdaIN_1"):
+            if set(sub) != {"Dense_0"}:
+                raise KeyError(f"{w}: expected Dense_0, got {sorted(sub)}")
+            _layer(sub["Dense_0"], f"{w}/Dense_0", out,
+                   f"{p}adain{int(name[-1]) + 1}.linear.", _dense)
+        else:
+            raise KeyError(f"{w}: unknown key")
+
+
+def _generator(tree: Mapping, out, p: str) -> None:
+    for name, sub in tree.items():
+        w = f"generator/{name}"
+        if name == "StyleMLP_0":
+            for dn, d in sub.items():
+                _layer(d, f"{w}/{dn}", out,
+                       f"{p}style_mlp.layers.{_index(dn, 'Dense_')}.",
+                       _dense)
+        elif name.startswith("StyledConvBlock_"):
+            _block(sub, w, out,
+                   f"{p}blocks.{_index(name, 'StyledConvBlock_')}.")
+        elif name == "EqualConv_0":
+            _layer(sub, w, out, f"{p}to_gray.")
+        else:
+            raise KeyError(f"{w}: unknown key")
+
+
+def _spacer(tree: Mapping, out, p: str) -> None:
+    n_conv = sum(k.startswith("Conv_") for k in tree)
+    for name, sub in tree.items():
+        w = f"spacer/{name}"
+        if name in ("mean", "std"):
+            out[p + name] = _tensor(sub)
+        elif name.startswith("Conv_"):
+            i = _index(name, "Conv_")
+            _layer(sub, w, out,
+                   f"{p}out." if i == n_conv - 1 else f"{p}convs.{i}.")
+        elif name.startswith("GroupNorm_"):
+            _leaves(sub, w, out, f"{p}norms.{_index(name, 'GroupNorm_')}.",
+                    {"scale": ("weight", _ident), "bias": ("bias", _ident)})
+        else:
+            raise KeyError(f"{w}: unknown key")
+
+
+def convert_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """flax ``params`` (nested dict of arrays) -> ``HWWithStyle`` state_dict
+    for its ``generator`` and ``spacer``."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, sub in params.items():
+        if name == "generator":
+            _generator(sub, out, "generator.")
+        elif name == "spacer":
+            _spacer(sub, out, "spacer.")
+        elif name not in SKIPPED_SUBTREES:
+            raise KeyError(f"unknown subtree {name!r}")
+    return out

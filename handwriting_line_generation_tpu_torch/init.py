@@ -1,0 +1,110 @@
+"""Seeded parameter init in the port, so the card runs without JAX.
+
+:func:`init_params` builds the ``generator`` and ``spacer`` subtrees of the
+flax ``HWWithStyle`` param tree, in flax's layout and with flax's
+distributions (it matches the distributions, not the bits):
+
+* lecun_normal — a normal truncated at 2 sigma, std ``sqrt(1/fan_in) /
+  0.8796`` — for ``nn.Conv``, ``nn.ConvTranspose`` and ``nn.Dense``;
+* N(0, 1) for the equal-LR layers (``EqualConv``, ``FusedUpsample``);
+* zero biases; AdaIN bias (gamma = 1, beta = 0); noise weight 0.01;
+  GroupNorm scale 1, bias 0; spacer mean (2, 0) and std (1.5, 0.5).
+
+:func:`init_model` loads it through :func:`convert.convert_params`.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+
+from handwriting_line_generation_tpu_torch.config import ModelConfig
+from handwriting_line_generation_tpu_torch.convert import convert_params
+from handwriting_line_generation_tpu_torch.models.hw_with_style import \
+    HWWithStyle
+
+# std of a unit normal truncated to [-2, 2]: flax divides by it
+_TRUNC_STD = 0.87962566103423978
+
+
+def _lecun(rng: np.random.Generator, shape) -> np.ndarray:
+    fan_in = int(np.prod(shape[:-1]))
+    x = rng.standard_normal(shape)
+    bad = np.abs(x) > 2.0
+    while bad.any():                       # resample outside 2 sigma
+        x[bad] = rng.standard_normal(int(bad.sum()))
+        bad = np.abs(x) > 2.0
+    return (x * (np.sqrt(1.0 / fan_in) / _TRUNC_STD)).astype(np.float32)
+
+
+def _layer(rng, shape, equal_lr: bool = False) -> Dict[str, np.ndarray]:
+    k = rng.standard_normal(shape).astype(np.float32) if equal_lr \
+        else _lecun(rng, shape)
+    return {"kernel": k, "bias": np.zeros(shape[-1], np.float32)}
+
+
+def _styled_block(rng, kind: str, cin: int, c: int, s: int) -> Dict:
+    tree = {}
+    if kind == "initial":
+        tree["ConvTranspose_0"] = _layer(rng, (4, 3, cin, c))
+        tree["Conv_0"] = _layer(rng, (3, 3, c, c))
+    elif kind == "nearest":
+        tree["Conv_0"] = _layer(rng, (3, 3, cin, c))
+        tree["Conv_1"] = _layer(rng, (3, 3, c, c))
+    else:                                                  # fused
+        tree["FusedUpsample_0"] = _layer(rng, (3, 3, cin, c), equal_lr=True)
+        tree["Conv_0"] = _layer(rng, (3, 3, c, c))
+    for i in range(2):
+        tree[f"NoiseInjection_{i}"] = {
+            "weight": np.full((1, 1, 1, c), 0.01, np.float32)}
+        tree[f"AdaIN_{i}"] = {"Dense_0": {
+            "kernel": _lecun(rng, (s, 2 * c)),
+            "bias": np.concatenate([np.ones(c, np.float32),
+                                    np.zeros(c, np.float32)])}}
+    return tree
+
+
+def init_params(cfg: ModelConfig, seed: int = 0) -> Dict:
+    """Flax-layout ``{"generator": ..., "spacer": ...}`` numpy tree."""
+    rng = np.random.default_rng(seed)
+    params = {}
+    s = cfg.style.style_dim
+    if cfg.generator.kind == "pure":
+        g, d = cfg.generator, cfg.generator.dim
+        cin = cfg.num_class + (s if g.append_style else 0) \
+            + cfg.char_cond_dim()
+        gen = {"StyleMLP_0": {f"Dense_{i}": _layer(rng, (s, s))
+                              for i in range(g.n_style_trans)}}
+        specs = [("initial", cin, d), ("nearest", d, d // 2),
+                 ("nearest", d // 2, d // 4), ("fused", d // 4, d // 8),
+                 ("fused", d // 8, d // 16)]
+        for i, (kind, ci, co) in enumerate(specs):
+            gen[f"StyledConvBlock_{i}"] = _styled_block(rng, kind, ci, co, s)
+        gen["EqualConv_0"] = _layer(rng, (1, 1, d // 16, 1), equal_lr=True)
+        params["generator"] = gen
+    if cfg.spacer.enabled:
+        h = cfg.spacer.dim
+        n_out = 2 if cfg.spacer.count_duplicates else 1
+        widths = [cfg.num_class + s, h, h // 2, h // 4]
+        sp = {}
+        for i in range(3):
+            sp[f"Conv_{i}"] = _layer(rng, (3, widths[i], widths[i + 1]))
+            sp[f"GroupNorm_{i}"] = {
+                "scale": np.ones(widths[i + 1], np.float32),
+                "bias": np.zeros(widths[i + 1], np.float32)}
+        sp["Conv_3"] = _layer(rng, (1, h // 4, n_out))
+        two = n_out == 2
+        sp["mean"] = np.array([2.0, 0.0] if two else [2.0] * n_out,
+                              np.float32)
+        sp["std"] = np.array([1.5, 0.5] if two else [1.0] * n_out,
+                             np.float32)
+        params["spacer"] = sp
+    return params
+
+
+def init_model(cfg: ModelConfig, seed: int = 0) -> HWWithStyle:
+    """``HWWithStyle`` on the CPU with seeded flax-distributed weights."""
+    model = HWWithStyle(cfg)
+    model.load_state_dict(convert_params(init_params(cfg, seed)))
+    return model

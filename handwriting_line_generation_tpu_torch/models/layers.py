@@ -1,0 +1,225 @@
+"""Building blocks of the generation slice, as ``torch.nn`` modules.
+
+Counterpart of ``handwriting_line_generation_tpu/models/layers.py``.
+Images are NCHW inside (the generator keeps them in ``channels_last``
+memory, so an NHWC view is contiguous); 1-D sequences are ``[B, C, L]``.
+Every layer takes the compute dtype and casts its parameters to it at use,
+the way flax's ``dtype=`` promotes them; statistics stay float32.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def group_count(channels: int) -> int:
+    """Number of GroupNorm groups per the reference's rule: 8 when divisible
+    for >= 32 channels, else 4, else the nearest prime factor."""
+    if channels <= 1:
+        return 1
+    goal = 8 if channels >= 32 else 4
+    if channels % goal == 0:
+        return goal
+    n, factors = channels, []
+    d = 2
+    while d * d <= n:
+        while n % d == 0:
+            factors.append(d)
+            n //= d
+        d += 1
+    if n > 1:
+        factors.append(n)
+    return int(min(factors, key=lambda f: (abs(f - goal), -f)))
+
+
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm`` semantics: eps 1e-6 (torch's default is 1e-5)
+    and the one-pass variance ``max(E[x^2] - E[x]^2, 0)`` in float32;
+    ``y = (x - mean) * (rstd * scale) + bias``, cast to the compute dtype."""
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32,
+                 eps: float = 1e-6):
+        super().__init__()
+        self.groups = group_count(channels)
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, C = x.shape[:2]
+        xf = x.float()
+        xg = xf.reshape(B, self.groups, -1)
+        mean = xg.mean(-1)
+        var = torch.clamp((xg * xg).mean(-1) - mean * mean, min=0.0)
+        rstd = torch.rsqrt(var + self.eps)
+        rep = C // self.groups
+        mean = mean.repeat_interleave(rep, dim=1)
+        mul = rstd.repeat_interleave(rep, dim=1) * self.weight.float()
+        shape = (B, C) + (1,) * (x.ndim - 2)
+        y = (xf - mean.reshape(shape)) * mul.reshape(shape) \
+            + self.bias.float().reshape((1, C) + (1,) * (x.ndim - 2))
+        return y.to(self.dtype)
+
+
+def instance_stats(x: torch.Tensor, eps: float = 1e-5
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One-sweep float32 ``(mean, rstd)`` over H, W of NCHW: ``[B, C, 1, 1]``
+    each, with the one-pass ``max(E[x^2] - E[x]^2, 0)`` variance."""
+    xf = x.float()
+    mean = xf.mean(dim=(2, 3), keepdim=True)
+    mean_sq = (xf * xf).mean(dim=(2, 3), keepdim=True)
+    var = torch.clamp(mean_sq - mean * mean, min=0.0)
+    return mean, torch.rsqrt(var + eps)
+
+
+def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    mean, rstd = instance_stats(x, eps)
+    return ((x.float() - mean) * rstd).to(x.dtype)
+
+
+def pixel_norm(x: torch.Tensor) -> torch.Tensor:
+    """``x / sqrt(mean(x^2) + 1e-8)`` over the last axis, in float32."""
+    xf = x.float()
+    return (xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + 1e-8)
+            ).to(x.dtype)
+
+
+def dense(x: torch.Tensor, linear: nn.Linear, dtype: torch.dtype
+          ) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=...)``: input and params cast to ``dtype``."""
+    return F.linear(x.to(dtype), linear.weight.to(dtype),
+                    linear.bias.to(dtype))
+
+
+def conv(x: torch.Tensor, layer: nn.Module, dtype: torch.dtype,
+         padding=0) -> torch.Tensor:
+    """flax ``nn.Conv(dtype=...)`` through a ``Conv1d``/``Conv2d``'s
+    params: input, kernel and bias cast to ``dtype``."""
+    fn = F.conv2d if layer.weight.ndim == 4 else F.conv1d
+    return fn(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype),
+              padding=padding)
+
+
+class EqualConv(nn.Module):
+    """Conv with the equal-LR runtime scale ``sqrt(2 / fan_in)``.
+
+    For 1x1 kernels a per-sample channel affine ``(in_scale, in_shift)``
+    (each ``[B, C_in]``) folds into the contraction exactly:
+    ``conv(x*s + t) == contract(x, w*s) + contract(t, w) + b``.  As in the
+    flax layer, ``x`` is contracted in float32 against a kernel rounded to
+    ``x``'s dtype, and the result is float32."""
+
+    def __init__(self, in_ch: int, features: int, kernel: int = 1):
+        super().__init__()
+        self.kernel = kernel
+        self.weight = nn.Parameter(torch.empty(features, in_ch, kernel,
+                                               kernel))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.scale = math.sqrt(2.0 / (in_ch * kernel * kernel))
+
+    def forward(self, x: torch.Tensor, in_scale: Optional[torch.Tensor] = None,
+                in_shift: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if in_scale is None:
+            return F.conv2d(x, (self.weight * self.scale).to(x.dtype),
+                            self.bias.to(x.dtype), padding="same")
+        if self.kernel != 1:
+            raise ValueError("EqualConv affine folding is only exact for "
+                             f"1x1 convs, got kernel {self.kernel}")
+        if in_shift is None:
+            raise ValueError("in_scale requires in_shift (pass zeros for a "
+                             "pure scale)")
+        w2d = (self.weight * self.scale)[:, :, 0, 0].t().float()   # [C_in, F]
+        wk = (in_scale.float()[:, :, None] * w2d[None]).to(x.dtype)
+        y = torch.einsum("bchw,bcf->bfhw", x.float(), wk.float())
+        bias = in_shift.float() @ w2d + self.bias.float()
+        return y + bias[:, :, None, None]
+
+
+class AdaIN(nn.Module):
+    """Instance norm, then a per-channel affine from the style.  The
+    linear's bias starts at gamma = 1, beta = 0; ``normalize=False`` returns
+    ``(x, gamma, beta)`` for callers that fold the affine elsewhere."""
+
+    def __init__(self, features: int, style_dim: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.features = features
+        self.dtype = dtype
+        self.linear = nn.Linear(style_dim, 2 * features)
+        with torch.no_grad():
+            self.linear.bias.copy_(torch.cat([torch.ones(features),
+                                              torch.zeros(features)]))
+
+    def affine(self, style: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        h = dense(style, self.linear, self.dtype)
+        return h[:, :self.features], h[:, self.features:]
+
+    def forward(self, x: torch.Tensor, style: torch.Tensor,
+                normalize: bool = True):
+        gamma, beta = self.affine(style)
+        if not normalize:
+            return x, gamma, beta
+        y = instance_norm(x)
+        return gamma[:, :, None, None] * y + beta[:, :, None, None]
+
+
+class NoiseInjection(nn.Module):
+    """``x + sqrt(2) * w[c] * noise[b, h, w]``: the reference wraps the layer
+    in equal-LR with fan_in 1, hence the sqrt(2).  Weight starts at 0.01."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.full((features,), 0.01))
+
+    def forward(self, x: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        w = (self.weight * math.sqrt(2.0)).to(x.dtype)
+        return x + w[None, :, None, None] * noise.to(x.dtype)[:, None]
+
+
+def blur3x3(x: torch.Tensor) -> torch.Tensor:
+    """Depthwise zero-padded 3x3 binomial blur ((1,2,1) x (1,2,1) / 16)."""
+    k = torch.tensor([1.0, 2.0, 1.0], device=x.device)
+    k = (k[:, None] * k[None, :]) / 16.0
+    c = x.shape[1]
+    w = k.to(x.dtype).expand(c, 1, 3, 3)
+    return F.conv2d(x, w, padding=1, groups=c)
+
+
+def upsample_nearest(x: torch.Tensor, scale: Tuple[int, int]) -> torch.Tensor:
+    """Nearest-neighbour upsample of NCHW by integer ``(sh, sw)``."""
+    return F.interpolate(x, scale_factor=scale, mode="nearest")
+
+
+class FusedUpsample(nn.Module):
+    """Stride-2 transposed conv whose 4x4 kernel is the 4-tap average of the
+    zero-padded, equal-LR-scaled 3x3 weight (StyleGAN's fused upsample).
+
+    The flax layer runs ``lax.conv_transpose(stride 2, padding 2)``, which
+    correlates the dilated input with the kernel unflipped; torch's
+    ``conv_transpose2d(stride=2, padding=1)`` flips it.  So ``weight`` is
+    stored ``[in, out, 3, 3]`` already flipped (``convert.py``), and the
+    4-tap average, which commutes with the flip, is taken at run time.
+
+    The ``only_vertical`` variant (stride (2, 1), W pad (1, 2)) is not on
+    the paper path — the generator's vertical-only blocks upsample nearest
+    and convolve — and is not ported."""
+
+    def __init__(self, in_ch: int, features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(in_ch, features, 3, 3))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.mult = math.sqrt(2.0 / (in_ch * 9))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        wp = F.pad(self.weight * self.mult, (1, 1, 1, 1))
+        w4 = (wp[:, :, 1:, 1:] + wp[:, :, :-1, 1:] + wp[:, :, 1:, :-1]
+              + wp[:, :, :-1, :-1]) / 4.0
+        return F.conv_transpose2d(x, w4.to(x.dtype), self.bias.to(x.dtype),
+                                  stride=2, padding=1)
