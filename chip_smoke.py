@@ -7,21 +7,38 @@ on one NVIDIA GPU.  Run from the repository root:
 Phases, in order; any failure exits non-zero:
 
 1. device  — the card's name and power limit (``nvidia-smi``);
-2. build   — every CUDA source of the port, compiled by ``nvcc``;
-3. kernels — each kernel against its plain PyTorch version on the card, at
-   the paper-width block shapes (B = 8), float32 (TF32 off) and bfloat16;
-4. main path — ``GenerationSession.render`` of 512 lines at paper width
-   (bf16, fused epilogue, seeded weights): shape, finiteness, range, the
-   kernel's launch count, and agreement with the plain (sequential) path;
-5. timing  — lines/s, and at each of the main path's kernel calls (its
-   shapes, B = 512, bf16) the kernel checked against its plain version,
-   then its time beside the plain version's and its bound (CUDA events);
-6. summary — one JSON line of kernels, then the device line last.
+2. build   — every CUDA source of the port, compiled by ``nvcc`` together;
+3. kernels — the generator epilogue against its plain PyTorch version on
+   the card, at the paper-width block shapes (B = 8), float32 (TF32 off)
+   and bfloat16;
+4. main path, generation — ``GenerationSession.render`` of 512 lines at
+   paper width (bf16, fused epilogue, seeded weights): shape, finiteness,
+   range, the epilogue's launch count, and agreement with the plain path;
+5. timing, generation — lines/s, and at each of the main path's epilogue
+   calls (B = 512, bf16) the kernel checked against its plain version, then
+   its time beside the plain version's and its bound (CUDA events);
+6. CTC kernel — against its plain recursion on the card (TF32 off), at
+   B = 16, C = 80 and the smallest, main and largest default buckets
+   (T, L) = (48, 24), (256, 72), (336, 96), plus a bucket with L > T: a
+   third of the frames masked, repeated characters, a length-0 label and
+   an impossible label; per-sample NLL and gradient, and two runs' grads
+   bit-equal;
+7. main path, training — ``HWRTrainer`` on ``configs/iam_hwr.json``
+   (full-width ``CNNOnlyHWR``, group norm, warp augmentation, f32, seeded
+   weights): 30 train steps and 1 eval step on a seeded batch of 16 u8
+   lines of 64 x 1024, finite and falling loss, 31 CTC launches; then one
+   step's loss and gradients through the kernel against the plain CTC;
+8. timing, training and CTC — ms per train step and trained lines/s; the
+   CTC kernel (forward + backward, forward only), its plain version and
+   ``F.ctc_loss`` at the three buckets, beside the bound;
+9. summary — one JSON line of kernels, then the device line last.
 
 Imports nothing of JAX.  Exits non-zero without a CUDA device.
 """
 
 import json
+import math
+import pathlib
 import subprocess
 import sys
 import time
@@ -42,6 +59,32 @@ CHECK_BATCH = 8
 MAIN_BATCH = 512
 BF16_MEAN_ABS_BOUND = 0.02         # kernel path vs plain path, bf16 render
 F32_MAX_ABS_BOUND = 1e-3           # kernel path vs plain path, f32 forward
+
+DEVICE = "cuda"                    # the card every phase drives
+REPO = pathlib.Path(__file__).resolve().parent
+HWR_CONFIG = REPO / "configs" / "iam_hwr.json"
+CTC_BATCH, CTC_CLASSES = 16, 80
+# (T, L): the smallest, main and largest default (width, label) buckets,
+# 192/1024/1344 px wide with 24/72/96 labels; the main one comes second
+CTC_BUCKETS = [(48, 24), (256, 72), (336, 96)]
+CTC_MAIN = 1
+CTC_IMPOSSIBLE_BUCKET = (8, 12)    # every label longer than the frames
+# kernel vs plain, float32 on the card.  NLL: expf/logf against torch's
+# exp/log.  Gradient: the kernel forms exp(alpha + beta - ll) from
+# log-probabilities of magnitude |ll| ~ 1e3, which float32 carries to
+# ~1e-4 after T steps, so each entry has that relative error (the JAX
+# package bounds its Pallas kernel against its scan by rtol 1e-3)
+CTC_NLL_TOL = dict(rtol=1e-5, atol=1e-4)
+CTC_GRAD_TOL = dict(rtol=2e-3, atol=1e-5)
+# float operations per (t, s) state of the valid label: ~20 for the alpha
+# step (3 max, 3 sub, 3 exp, adds, 1 log), ~20 more for the beta step and
+# the occupancy with its class sum
+CTC_OPS = {True: 40, False: 20}
+TRAIN_STEPS = 30
+# one step's parameter gradients, kernel vs plain CTC, relative to each
+# tensor's largest entry: the same forward, but cuDNN may pick other
+# backward algorithms (other summation orders, atomics) for the two runs
+TRAIN_GRAD_RTOL = 1e-3
 
 
 def block_shapes(dim=256, t=192):
@@ -87,17 +130,188 @@ def check_epilogue(torch, ge, args, blur, dname, label):
     return err
 
 
-def event_ms(torch, fn, iters, warmup=2):
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+def ctc_inputs(torch, ctc, B, T, C, L, seed):
+    """Log-softmax inputs with about a third of the frames masked to blank
+    (mean over samples), label lengths in [1, L], and three edge cases:
+    sample 0 repeats characters, sample 1 has length 0, sample 2 has more
+    labels than unmasked frames (impossible).  Returns ``(masked log-probs,
+    labels, label_lengths)``; the first requires grad."""
+    g = torch.Generator(DEVICE).manual_seed(seed)
+    lp = torch.log_softmax(torch.randn((B, T, C), generator=g,
+                                       device=DEVICE), -1)
+    lens = torch.randint(1, L + 1, (B,), generator=g, device=DEVICE,
+                         dtype=torch.int32)
+    labels = torch.randint(1, C, (B, L), generator=g, device=DEVICE,
+                           dtype=torch.int32)
+    frames = torch.randint(T // 3, T + 1, (B,), generator=g, device=DEVICE)
+    rep = torch.tensor([3, 3, 3, 7, 7, 1][:L], device=DEVICE)
+    labels[0, :len(rep)] = rep
+    lens[0] = max(int(lens[0]), len(rep))
+    lens[1] = 0
+    lens[2] = L
+    frames[2] = max(1, min(T, L // 2))
+    labels = torch.where(torch.arange(L, device=DEVICE)[None] < lens[:, None],
+                         labels, 0).contiguous()
+    x = ctc.mask_frames_to_blank(lp, frames).detach().requires_grad_(True)
+    return x, labels, lens
+
+
+def ctc_both(torch, ctc, x, labels, lens):
+    """Per-sample NLL and the gradient of the mean loss w.r.t. ``x``,
+    through the kernel and through the plain recursion."""
+    out = []
+    B, T, _ = x.shape
+    for kernel in (True, False):
+        if kernel:
+            nll = ctc.ctc_loss_cuda(x, labels, lens, reduction="none")
+        else:
+            nll = ctc.ctc_loss(x, labels, torch.full_like(lens, T), lens,
+                               reduction="none")
+        loss = (nll / torch.clamp(lens, min=1)).mean()
+        out.append((nll.detach(), torch.autograd.grad(loss, x)[0]))
+    return out
+
+
+def check_ctc(torch, ctc, T, L, seed):
+    """Kernel against plain at one bucket; raises past the tolerances, on
+    a non-zero impossible sample, or on grads that differ between two
+    runs.  Returns the max abs error (NLL or grad)."""
+    x, labels, lens = ctc_inputs(torch, ctc, CTC_BATCH, T, CTC_CLASSES, L,
+                                 seed)
+    (nll_k, g_k), (nll_p, g_p) = ctc_both(torch, ctc, x, labels, lens)
+    torch.cuda.synchronize()
+    e_nll = (nll_k - nll_p).abs().max().item()
+    e_grad = (g_k - g_p).abs().max().item()
+    r_grad = ((g_k - g_p).abs() / g_p.abs().clamp(min=CTC_GRAD_TOL["atol"])
+              ).max().item()
+    ok = (torch.allclose(nll_k, nll_p, **CTC_NLL_TOL)
+          and torch.allclose(g_k, g_p, **CTC_GRAD_TOL))
+    imp = nll_k[2].item() == 0.0 and bool((g_k[2] == 0).all())
+    _, g_again = ctc_both(torch, ctc, x, labels, lens)[0]
+    same = torch.equal(g_k, g_again)
+    print(f"ctc B={CTC_BATCH} T={T} L={L} C={CTC_CLASSES}: nll max_abs_err "
+          f"{e_nll:.3e} (rtol {CTC_NLL_TOL['rtol']}, atol "
+          f"{CTC_NLL_TOL['atol']}), grad max_abs_err {e_grad:.3e}, max "
+          f"rel {r_grad:.3e} (rtol {CTC_GRAD_TOL['rtol']}, atol "
+          f"{CTC_GRAD_TOL['atol']}), impossible sample zero {imp}, repeat "
+          f"bit-equal {same} {'ok' if ok and imp and same else 'FAIL'}",
+          flush=True)
+    if not (ok and imp and same):
+        raise AssertionError("ctc kernel disagrees with its plain version")
+    return max(e_nll, e_grad)
+
+
+def train_main_path(torch, tt, ctc, HWRTrainer, load_config):
+    """30 train steps and 1 eval step of the HWR trainer through the CTC
+    kernel.  Returns (launches, trainer, batch on the card)."""
+    cfg = load_config(str(HWR_CONFIG))
+    print(f"training config {HWR_CONFIG.name}: hwr {cfg.model.hwr.kind}/"
+          f"{cfg.model.hwr.norm}, augmentation {cfg.data.augmentation}, "
+          f"lr {cfg.optimizer.lr}, betas {cfg.optimizer.betas}, "
+          f"{cfg.model.compute_dtype}", flush=True)
+    tr = HWRTrainer(cfg, device=DEVICE)
+    tr.init_state(seed=0)
+    batch = tt.batch(seed=0, device=DEVICE)
+    ctc.ctc_loss_cuda.launches = 0
+    losses = [tr.train_step(*batch)[0] for _ in range(TRAIN_STEPS)]
+    eval_loss, eval_logp = tr.eval_step(*batch)
+    launches = ctc.ctc_loss_cuda.launches
+    losses = torch.stack(losses).tolist()
+    print("train losses " + " ".join(f"{v:.4f}" for v in losses)
+          + f"; eval loss {eval_loss.item():.4f}; ctc launches {launches}",
+          flush=True)
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    if not all(math.isfinite(v) for v in losses + [eval_loss.item()]):
+        raise AssertionError("a training loss is not finite")
+    if not last < first:
+        raise AssertionError(f"loss did not fall: first five {first:.4f}, "
+                             f"last five {last:.4f}")
+    if launches != TRAIN_STEPS + 1:
+        raise AssertionError(f"expected {TRAIN_STEPS + 1} ctc launches, got "
+                             f"{launches}")
+    want = (tt.B, tt.W // 4, CTC_CLASSES)
+    if tuple(eval_logp.shape) != want:
+        raise AssertionError(f"log-probs {tuple(eval_logp.shape)}, want "
+                             f"{want}")
+    print(f"main path training: mean loss of the first five steps "
+          f"{first:.4f}, of the last five {last:.4f}; log-probs "
+          f"{tuple(eval_logp.shape)}", flush=True)
+    return launches, tr, batch
+
+
+def check_train_grads(torch, ctc, HWRTrainer, load_config, batch):
+    """One step's loss and gradients through the kernel and through the
+    plain CTC, from the same weights and batch, augmentation off."""
+    cfg = load_config(str(HWR_CONFIG))
+    cfg.data.augmentation = None
+    tr = HWRTrainer(cfg, device=DEVICE)
+    tr.init_state(seed=0)
+    params = list(tr.model.parameters())
+    loss_k, logp = tr.loss(*batch)
+    g_k = torch.autograd.grad(loss_k, params, retain_graph=True)
+    B, T, _ = logp.shape
+    loss_p = ctc.ctc_loss(logp, batch[1], torch.full((B,), T, device=DEVICE),
+                          batch[2])
+    g_p = torch.autograd.grad(loss_p, params)
+    rel_loss = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    worst = max(((a - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(g_k, g_p))
+    ok = rel_loss <= 1e-5 and worst <= TRAIN_GRAD_RTOL
+    print(f"one step, kernel vs plain CTC: loss {loss_k.item():.6f} vs "
+          f"{loss_p.item():.6f} (rel {rel_loss:.2e}, bound 1e-5); worst "
+          f"parameter gradient max abs diff / max abs {worst:.2e} (bound "
+          f"{TRAIN_GRAD_RTOL}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("training step through the kernel disagrees "
+                             "with the plain CTC")
+
+
+def time_train(tt, tr, batch, iters=10, warmup=3):
+    """ms per train step, by CUDA events around ``iters`` steps."""
+    return tt.event_ms(lambda: tr.train_step(*batch), iters, warmup)
+
+
+def time_ctc(torch, tt, F, ctc, T, L, card):
+    """Kernel (forward + backward, forward only), plain and F.ctc_loss
+    times at one bucket, and the bound.  Returns a dict of ms."""
+    x, labels, lens = ctc_inputs(torch, ctc, CTC_BATCH, T, CTC_CLASSES, L,
+                                 seed=T)
+    m = x.detach().contiguous()
+    B, C = CTC_BATCH, CTC_CLASSES
+    t_k = tt.event_ms(lambda: ctc._launch(m, labels, lens, True), 50)
+    t_f = tt.event_ms(lambda: ctc._launch(m, labels, lens, False), 50)
+    tfull = torch.full_like(lens, T)
+    t_p = tt.event_ms(lambda: torch.autograd.grad(ctc.ctc_loss(
+        x, labels, tfull, lens, reduction="none").sum(), x), 3, warmup=1)
+    xt = m.transpose(0, 1).detach().clone().requires_grad_(True)
+    lab64, len64, t64 = labels.long(), lens.long(), tfull.long()
+    lib = lambda: F.ctc_loss(xt, lab64, t64, len64, blank=0,
+                             reduction="none", zero_infinity=True)
+    t_l = tt.event_ms(lambda: torch.autograd.grad(lib().sum(), xt), 20)
+    with torch.no_grad():
+        # values only, over the possible samples: F.ctc_loss zeroes only
+        # infinite losses, and the masked frames' -1e30 keeps an
+        # impossible one finite (~1e30)
+        got = ctc.ctc_loss_cuda(m, labels, lens, reduction="none")
+        ref = lib()
+        d_lib = torch.where(ref < 5e29, (ref - got).abs(), 0.0).max()
+    cells = int((T * (2 * lens.long() + 1)).sum())
+    bounds = {}
+    for grad in (True, False):
+        nbytes = (B * T * C * 4 * (2 if grad else 1)
+                  + B * L * 4 + B * 4 + B * 4)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = cells * CTC_OPS[grad] / F32_OPS_PER_S * 1e3
+        bounds[grad] = (max(t_bytes, t_ops),
+                        "bytes" if t_bytes >= t_ops else "operations")
+    print(f"ctc B={B} T={T} L={L} C={C}: kernel fwd+bwd {t_k:.4f} ms, "
+          f"fwd {t_f:.4f} ms; plain fwd+bwd {t_p:.4f} ms; F.ctc_loss "
+          f"fwd+bwd {t_l:.4f} ms (nll max abs diff to the kernel "
+          f"{d_lib.item():.3e}); bound fwd+bwd {bounds[True][0]:.5f} ms "
+          f"({bounds[True][1]}), fwd {bounds[False][0]:.5f} ms {card}",
+          flush=True)
+    return dict(ms=t_k, fwd_ms=t_f, plain_ms=t_p, library_ms=t_l,
+                bound_ms=bounds[True][0], bound_by=bounds[True][1])
 
 
 def main():
@@ -107,12 +321,18 @@ def main():
               file=sys.stderr)
         return 1
     import numpy as np
+    import torch.nn.functional as F
     from handwriting_line_generation_tpu_torch import bench, kernels
+    from handwriting_line_generation_tpu_torch import trace_train as tt
+    from handwriting_line_generation_tpu_torch.config import load_config
     from handwriting_line_generation_tpu_torch.inference.generate import (
         GenerationSession,
     )
     from handwriting_line_generation_tpu_torch.init import init_model
+    from handwriting_line_generation_tpu_torch.ops import ctc
     from handwriting_line_generation_tpu_torch.ops import gen_epilogue as ge
+    from handwriting_line_generation_tpu_torch.training.hwr_trainer import \
+        HWRTrainer
 
     # 1. device
     smi = subprocess.run(
@@ -178,7 +398,7 @@ def main():
     cfg32 = bench.paper_config()
     cfg32.compute_dtype = "float32"
     s32 = GenerationSession(init_model(cfg32, seed=0), session.charset,
-                            device="cuda")
+                            device=DEVICE)
     few = slice(0, 4)
     outs = []
     for fused in (True, False):
@@ -205,9 +425,9 @@ def main():
         max_err = max(max_err, check_epilogue(
             torch, ge, args, blur, "bfloat16",
             f"block {blk} B={MAIN_BATCH} C={c} H={h} W={w}"))
-        t_k = event_ms(torch, lambda: ge.block_epilogue(
+        t_k = tt.event_ms(lambda: ge.block_epilogue(
             *args, apply_blur=blur), iters=20)
-        t_p = event_ms(torch, lambda: ge.block_epilogue_reference(
+        t_p = tt.event_ms(lambda: ge.block_epilogue_reference(
             *args, apply_blur=blur), iters=3, warmup=1)
         n = MAIN_BATCH * h * w
         nbytes = (2 * n * c + n + c + 2 * MAIN_BATCH * c) * 2
@@ -225,7 +445,35 @@ def main():
     print(f"gen_epilogue per forward (9 calls): kernel {k_ms:.4f} ms, plain "
           f"{p_ms:.4f} ms, bound {b_ms:.4f} ms {card}")
 
-    # 6. summary
+    # 6. CTC kernel vs plain (TF32 still off)
+    ctc_err = 0.0
+    for T, L in CTC_BUCKETS + [CTC_IMPOSSIBLE_BUCKET]:
+        ctc_err = max(ctc_err, check_ctc(torch, ctc, T, L, seed=T + L))
+
+    # 7. main path: HWR training through the kernel
+    del session
+    torch.cuda.empty_cache()
+    ctc_launches, trainer, batch = train_main_path(
+        torch, tt, ctc, HWRTrainer, load_config)
+    check_train_grads(torch, ctc, HWRTrainer, load_config, batch)
+
+    # 8. timing: training and the CTC kernel
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        step_ms = time_train(tt, trainer, batch)
+        print(f"train step (iam_hwr, B={tt.B}, 64x{tt.W}, "
+              f"f32, TF32 {'on' if tf32 else 'off'}): {step_ms:.3f} ms, "
+              f"{tt.B * 1000.0 / step_ms:.1f} trained lines/s {card}",
+              flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    del trainer
+    ctc_times = [time_ctc(torch, tt, F, ctc, T, L, card)
+                 for T, L in CTC_BUCKETS]
+    main_t = ctc_times[CTC_MAIN]
+
+    # 9. summary
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "gen_epilogue", "route": "cuda",
@@ -233,7 +481,14 @@ def main():
         "replaces": "handwriting_line_generation_tpu/ops/gen_epilogue.py:39",
         "launches": launches, "max_abs_err": max_err, "ms": k_ms,
         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": bound_by,
-        "library_ms": None}]}))
+        "library_ms": None}, {
+        "name": "ctc", "route": "cuda",
+        "source": "handwriting_line_generation_tpu_torch/csrc/ctc.cu",
+        "replaces": "handwriting_line_generation_tpu/ops/ctc_pallas.py:60",
+        "launches": ctc_launches, "max_abs_err": ctc_err,
+        "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
+        "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
+        "library_ms": main_t["library_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

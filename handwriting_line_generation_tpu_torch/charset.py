@@ -1,9 +1,9 @@
-"""Character sets and label <-> string codecs.
+"""Character sets, label <-> string codecs and greedy CTC decoding.
 
-A copy of ``handwriting_line_generation_tpu/charset.py``'s ``Charset`` and
-``IAM_CHARSET`` (the port imports nothing of the JAX package).  Index 0 is
-the CTC blank; characters are indexed from 1, so
-``num_class == len(chars) + 1``.
+A copy of ``handwriting_line_generation_tpu/charset.py``'s ``Charset``,
+``IAM_CHARSET``, ``RIMES_CHARSET`` and greedy decoders (the port imports
+nothing of the JAX package).  Index 0 is the CTC blank; characters are
+indexed from 1, so ``num_class == len(chars) + 1``.
 """
 
 from __future__ import annotations
@@ -18,6 +18,13 @@ IAM_CHARS = (
     " !\"#&'()*+,-./0123456789:;?"
     "ABCDEFGHIJKLMNOPQRSTUVWXYZ"
     "abcdefghijklmnopqrstuvwxyz"
+)
+
+RIMES_CHARS = (
+    "'-/0123456789"
+    "ABCDEFGHIJKLMNOPQRSTUVWXYZ"
+    "abcdefghijklmnopqrstuvwxyz"
+    "°àâçèéêîôùû "
 )
 
 BLANK = 0
@@ -64,3 +71,47 @@ class Charset:
 
 
 IAM_CHARSET = Charset(IAM_CHARS)
+RIMES_CHARSET = Charset(RIMES_CHARS)
+
+
+def get_charset(name: str) -> Charset:
+    """``DataConfig.charset``: ``iam`` or ``rimes`` (the JAX package also
+    reads a charset JSON file; the port does not yet)."""
+    if name == "iam":
+        return IAM_CHARSET
+    if name == "rimes":
+        return RIMES_CHARSET
+    raise ValueError(f"unknown charset {name!r} (the port knows 'iam' and "
+                     f"'rimes')")
+
+
+def _collapse(ids) -> List[int]:
+    """Collapse repeats, then drop blanks."""
+    out: List[int] = []
+    prev = -1
+    for v in ids:
+        v = int(v)
+        if v != BLANK and v != prev:
+            out.append(v)
+        prev = v
+    return out
+
+
+def ctc_greedy_decode(logits: np.ndarray) -> List[int]:
+    """Greedy CTC decode of a ``[T, num_class]`` log-prob/logit matrix:
+    per-frame argmax, repeats collapsed, blanks removed."""
+    return _collapse(np.argmax(np.asarray(logits), axis=1))
+
+
+def ctc_greedy_decode_batch(logits: np.ndarray, charset: Charset
+                            ) -> List[str]:
+    """Decode a ``[B, T, num_class]`` batch straight to strings."""
+    logits = np.asarray(logits)
+    return [charset.decode(ctc_greedy_decode(logits[b]))
+            for b in range(logits.shape[0])]
+
+
+def collapse_argmax_batch(argmaxes: np.ndarray, charset: Charset
+                          ) -> List[str]:
+    """Strings from precomputed per-frame argmax classes ``[B, T]``."""
+    return [charset.decode(_collapse(row)) for row in np.asarray(argmaxes)]

@@ -1,14 +1,17 @@
-"""Model configuration: the subset of ``handwriting_line_generation_tpu/
-config.py`` that the generation slice reads, with the same fields and
-defaults.  ``HWRConfig`` and ``DiscriminatorConfig`` are carried as plain
-field sets because ``ModelConfig`` holds them; their modules are not ported
-yet.
+"""Configuration: a copy of ``handwriting_line_generation_tpu/config.py``'s
+dataclasses, with the same fields and defaults, and a loader for the repo's
+own config files (``configs/*.json``).  ``DiscriminatorConfig`` is carried
+as a plain field set because ``ModelConfig`` holds it; its module is not
+ported yet.  Reference-schema configs are translated by the JAX package
+only.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -118,3 +121,143 @@ class ModelConfig:
         raise ValueError(
             "model.compute_dtype must be 'float32' or 'bfloat16', got "
             f"{self.compute_dtype!r}")
+
+
+@dataclass
+class DataConfig:
+    dataset: str = "synthetic"       # iam_author | iam_lines | rimes_author | synthetic | text
+    data_dir: str = ""
+    batch_size: int = 2              # authors per batch for author datasets
+    a_batch_size: int = 2            # lines per author
+    img_height: int = 64
+    max_width: int = 1300
+    charset: str = "iam"             # iam | rimes | path to json
+    augmentation: Optional[str] = "affine"
+    width_buckets: Tuple[int, ...] = (192, 320, 448, 576, 704, 832, 1024, 1344)
+    label_buckets: Tuple[int, ...] = (24, 48, 72, 96)
+    fg_masks: bool = True
+    shuffle: bool = True
+    text_data: Optional[str] = None  # corpus path for gen-only lessons
+    num_workers: int = 2
+    synthetic_authors: int = 20
+    synthetic_lines: int = 50
+    spaced_loc: Optional[str] = None    # npz of rid -> spaced class row
+    style_loc: Optional[str] = None     # npz/glob of {styles,authors[,ids]}
+    identity_spaced: bool = False
+    synthetic_version: int = 2
+    u8_transfer: bool = True         # images reach the device as raw u8
+                                     # pixels (ops.augment.dequantize_image)
+
+
+@dataclass
+class OptimConfig:
+    kind: str = "adam"
+    lr: float = 2e-4
+    betas: Tuple[float, float] = (0.5, 0.999)
+    weight_decay: float = 0.0
+    lr_schedule: str = "none"   # none | LR_test | cyclic | cyclic-full |
+                                # 1cycle | rampup | warmup
+    warmup_steps: int = 1000
+    cycle_size: int = 500
+
+
+@dataclass
+class TrainerConfig:
+    kind: str = "gan"               # gan | hwr | auto
+    iterations: int = 175_000
+    val_step: int = 10_000
+    save_step: int = 25_000
+    save_step_minor: int = 250
+    log_step: int = 250
+    save_dir: str = "saved/"
+    curriculum: Dict[str, List[List[Any]]] = field(default_factory=dict)
+    balance_loss: str = "sign_preserve_var"
+    balance_var_x: Dict[str, List[float]] = field(
+        default_factory=lambda: {"0": [0.6, 0.5, 0.4, 0.75]})
+    interpolate_gen_styles: str = "extra-0.5"
+    prev_style_size: int = 100
+    no_bg_loss: bool = True
+    encoder_weights: Optional[str] = None
+    encoder_type: str = "2tight"
+    loss: Dict[str, str] = field(default_factory=dict)
+    loss_weights: Dict[str, float] = field(default_factory=dict)
+    loss_params: Dict[str, Dict[str, Any]] = field(default_factory=dict)
+    grad_clip: float = 2.0
+    text_data_max_len: Optional[int] = None
+    casesensitive: bool = True
+    style_detach: bool = False
+    print_every: int = 250
+    print_dir: Optional[str] = None
+    seed: int = 0
+    swa: bool = False
+    swa_start: int = 0
+    swa_c_iters: int = 1
+    monitor: Optional[str] = "val_gen_CER"
+    monitor_mode: str = "min"       # min | max
+    use_style_cache: bool = False
+
+
+@dataclass
+class AutoencoderConfig:
+    kind: str = "2tight"            # 2tight | 2tighter | 2 | no_skip
+    hwr_classes: int = 80           # CTC aux head classes; 0 disables
+
+
+@dataclass
+class MeshConfig:
+    data: int = -1
+    model: int = 1
+
+
+@dataclass
+class Config:
+    name: str = "experiment"
+    model: ModelConfig = field(default_factory=ModelConfig)
+    autoencoder: Optional[AutoencoderConfig] = None
+    data: DataConfig = field(default_factory=DataConfig)
+    optimizer: OptimConfig = field(default_factory=OptimConfig)
+    optimizer_discriminator: OptimConfig = field(default_factory=OptimConfig)
+    trainer: TrainerConfig = field(default_factory=TrainerConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+
+def _dataclass_from_dict(cls, data: Dict[str, Any]):
+    """Build dataclass ``cls`` from a plain dict, recursing into fields
+    whose default is a dataclass; unknown keys are ignored."""
+    kwargs = {}
+    fields = {f.name: f for f in dataclasses.fields(cls)}
+    for key, value in data.items():
+        if key not in fields:
+            continue
+        f = fields[key]
+        default = (f.default_factory()
+                   if f.default_factory is not dataclasses.MISSING
+                   else f.default)
+        if dataclasses.is_dataclass(default) and isinstance(value, dict):
+            kwargs[key] = _dataclass_from_dict(type(default), value)
+        elif isinstance(default, tuple) and isinstance(value, list):
+            kwargs[key] = tuple(value)
+        else:
+            kwargs[key] = value
+    return cls(**kwargs)
+
+
+def config_from_dict(data: Dict[str, Any]) -> Config:
+    cfg = _dataclass_from_dict(Config, data)
+    if data.get("autoencoder") is not None:
+        cfg.autoencoder = _dataclass_from_dict(AutoencoderConfig,
+                                               data["autoencoder"])
+    return cfg
+
+
+def load_config(path: str) -> Config:
+    """Load one of the repo's own config files (``configs/*.json``)."""
+    with open(path) as f:
+        data = json.load(f)
+    if "arch" in data or "data_loader" in data:
+        raise ValueError(f"{path} is a reference-schema config; the port "
+                         f"reads the repo's own schema only")
+    return config_from_dict(data)

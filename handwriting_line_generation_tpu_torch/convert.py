@@ -1,8 +1,9 @@
-"""flax ``HWWithStyle`` param tree -> this package's ``state_dict``.
+"""flax param trees -> this package's ``state_dict``s.
 
-Covers the ``generator`` and ``spacer`` subtrees; the subtrees of modules
-not ported yet are skipped (:data:`SKIPPED_SUBTREES`) and any other key
-raises.  Layout rules:
+:func:`convert_params` covers the ``generator`` and ``spacer`` subtrees of
+``HWWithStyle``; the subtrees of modules not ported yet are skipped
+(:data:`SKIPPED_SUBTREES`) and any other key raises.
+:func:`convert_hwr_params` converts a ``CNNOnlyHWR`` tree.  Layout rules:
 
 * Dense ``[in, out]`` -> Linear ``[out, in]``.
 * 2-D conv HWIO -> OIHW; 1-D conv ``[k, in, out]`` -> ``[out, in, k]``.
@@ -141,4 +142,41 @@ def convert_params(params: Mapping) -> Dict[str, torch.Tensor]:
             _spacer(sub, out, "spacer.")
         elif name not in SKIPPED_SUBTREES:
             raise KeyError(f"unknown subtree {name!r}")
+    return out
+
+
+def _gn(tree, where, out, prefix):
+    _leaves(tree, where, out, prefix,
+            {"scale": ("weight", _ident), "bias": ("bias", _ident)})
+
+
+def _convs_and_norms(tree: Mapping, where: str, out, p: str,
+                     last_conv: str = "") -> None:
+    """``Conv_<i>`` -> ``convs.<i>`` (the ``last_conv`` one -> ``out``) and
+    ``GroupNorm_<i>`` -> ``norms.<i>``."""
+    for name, sub in tree.items():
+        w = f"{where}/{name}"
+        if name == last_conv:
+            _layer(sub, w, out, f"{p}out.")
+        elif name.startswith("Conv_"):
+            _layer(sub, w, out, f"{p}convs.{_index(name, 'Conv_')}.")
+        elif name.startswith("GroupNorm_"):
+            _gn(sub, w, out, f"{p}norms.{_index(name, 'GroupNorm_')}.")
+        else:
+            raise KeyError(f"{w}: unknown key")
+
+
+def convert_hwr_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """flax ``CNNOnlyHWR`` params (with or without the outer ``"params"``
+    key) -> ``models.hwr.CNNOnlyHWR`` state_dict."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    n_conv = sum(k.startswith("Conv_") for k in params)
+    head = {k: v for k, v in params.items() if k != "_ConvTrunk_0"}
+    if "_ConvTrunk_0" not in params:
+        raise KeyError("hwr: missing _ConvTrunk_0")
+    _convs_and_norms(params["_ConvTrunk_0"], "hwr/_ConvTrunk_0", out,
+                     "trunk.")
+    _convs_and_norms(head, "hwr", out, "", last_conv=f"Conv_{n_conv - 1}")
     return out

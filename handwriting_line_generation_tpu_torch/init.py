@@ -11,6 +11,9 @@ distributions (it matches the distributions, not the bits):
   GroupNorm scale 1, bias 0; spacer mean (2, 0) and std (1.5, 0.5).
 
 :func:`init_model` loads it through :func:`convert.convert_params`.
+:func:`init_hwr_params` builds a ``CNNOnlyHWR`` tree the same way
+(lecun_normal conv kernels, zero biases, GroupNorm 1/0) and
+:func:`init_hwr` loads it through :func:`convert.convert_hwr_params`.
 """
 
 from __future__ import annotations
@@ -18,11 +21,17 @@ from __future__ import annotations
 from typing import Dict
 
 import numpy as np
+import torch
 
-from handwriting_line_generation_tpu_torch.config import ModelConfig
-from handwriting_line_generation_tpu_torch.convert import convert_params
+from handwriting_line_generation_tpu_torch.config import HWRConfig, ModelConfig
+from handwriting_line_generation_tpu_torch.convert import (
+    convert_hwr_params, convert_params,
+)
 from handwriting_line_generation_tpu_torch.models.hw_with_style import \
     HWWithStyle
+from handwriting_line_generation_tpu_torch.models.hwr import (
+    DILATIONS, TRUNK_NORMED, TRUNK_WIDTHS, CNNOnlyHWR, build_hwr,
+)
 
 # std of a unit normal truncated to [-2, 2]: flax divides by it
 _TRUNC_STD = 0.87962566103423978
@@ -107,4 +116,40 @@ def init_model(cfg: ModelConfig, seed: int = 0) -> HWWithStyle:
     """``HWWithStyle`` on the CPU with seeded flax-distributed weights."""
     model = HWWithStyle(cfg)
     model.load_state_dict(convert_params(init_params(cfg, seed)))
+    return model
+
+
+def _norm(c: int) -> Dict[str, np.ndarray]:
+    return {"scale": np.ones(c, np.float32), "bias": np.zeros(c, np.float32)}
+
+
+def init_hwr_params(hwr: HWRConfig, num_class: int, seed: int = 0) -> Dict:
+    """Flax-layout ``{"params": ...}`` numpy tree of a ``CNNOnlyHWR``."""
+    if hwr.kind != "cnn_only":
+        raise NotImplementedError(f"init of hwr kind {hwr.kind!r}")
+    rng = np.random.default_rng(seed)
+    normed = hwr.norm != "none"
+    trunk, cin, k = {}, 1, 0
+    for i, (f, n) in enumerate(zip(TRUNK_WIDTHS, TRUNK_NORMED)):
+        trunk[f"Conv_{i}"] = _layer(rng, (3, 3, cin, f))
+        if n and normed:
+            trunk[f"GroupNorm_{k}"] = _norm(f)
+            k += 1
+        cin = f
+    tree = {"_ConvTrunk_0": trunk}
+    for i in range(len(DILATIONS)):
+        tree[f"Conv_{i}"] = _layer(rng, (3, 512, 512))
+        if normed:
+            tree[f"GroupNorm_{i}"] = _norm(512)
+    tree[f"Conv_{len(DILATIONS)}"] = _layer(rng, (3, 512, num_class))
+    return {"params": tree}
+
+
+def init_hwr(hwr: HWRConfig, num_class: int, seed: int = 0,
+             dtype: torch.dtype = torch.float32) -> CNNOnlyHWR:
+    """``CNNOnlyHWR`` on the CPU with seeded flax-distributed weights."""
+    model = build_hwr(hwr.kind, num_class, hwr.norm, hwr.small, hwr.pad,
+                      dtype)
+    model.load_state_dict(convert_hwr_params(
+        init_hwr_params(hwr, num_class, seed)))
     return model

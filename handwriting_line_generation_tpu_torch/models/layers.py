@@ -1,4 +1,5 @@
-"""Building blocks of the generation slice, as ``torch.nn`` modules.
+"""Building blocks of the generation and recognition slices, as
+``torch.nn`` modules.
 
 Counterpart of ``handwriting_line_generation_tpu/models/layers.py``.
 Images are NCHW inside (the generator keeps them in ``channels_last``
@@ -98,12 +99,37 @@ def dense(x: torch.Tensor, linear: nn.Linear, dtype: torch.dtype
 
 
 def conv(x: torch.Tensor, layer: nn.Module, dtype: torch.dtype,
-         padding=0) -> torch.Tensor:
+         padding=0, dilation=1) -> torch.Tensor:
     """flax ``nn.Conv(dtype=...)`` through a ``Conv1d``/``Conv2d``'s
     params: input, kernel and bias cast to ``dtype``."""
     fn = F.conv2d if layer.weight.ndim == 4 else F.conv1d
     return fn(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype),
-              padding=padding)
+              padding=padding, dilation=dilation)
+
+
+def _same_pads(size: int, window: int, stride: int) -> Tuple[int, int]:
+    """(low, high) padding of XLA's ``SAME`` for one dimension."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + window - size, 0)
+    return total // 2, total - total // 2
+
+
+def max_pool(x: torch.Tensor, window: Tuple[int, int],
+             stride: Optional[Tuple[int, int]] = None,
+             padding: str = "VALID") -> torch.Tensor:
+    """flax ``nn.max_pool`` on NCHW.  ``SAME`` pads with -inf as XLA does,
+    which may be asymmetric (a (2, 2) window at stride (2, 1) pads W by
+    (0, 1)); torch's ``max_pool2d`` pads only symmetrically, so the input is
+    padded first."""
+    stride = stride or window
+    if padding == "SAME":
+        (ht, hb), (wl, wr) = (_same_pads(x.shape[2], window[0], stride[0]),
+                              _same_pads(x.shape[3], window[1], stride[1]))
+        x = F.pad(x, (wl, wr, ht, hb), value=float("-inf"))
+    elif padding != "VALID":
+        raise ValueError(f"padding must be 'SAME' or 'VALID', got "
+                         f"{padding!r}")
+    return F.max_pool2d(x, window, stride)
 
 
 class EqualConv(nn.Module):

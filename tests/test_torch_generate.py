@@ -196,19 +196,28 @@ def test_entry_points_need_cuda_or_explicit_cpu():
         bench.build(2)
 
 
+# modules of the recognition slice that the walk below must reach
+HWR_MODULES = ("ops.ctc", "ops.augment", "models.hwr", "training.hwr_trainer",
+               "training.train_state", "utils.error_rates",
+               "utils._editdistance", "utils.train_log")
+
+
 def test_port_imports_no_jax():
     """Importing every module of the port, its bench and chip_smoke.py
-    leaves jax, flax and the JAX package out of sys.modules."""
+    leaves jax, flax, cv2 and the JAX package out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         f"import {PKG} as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        f"missing = [m for m in {HWR_MODULES!r}\n"
+        f"           if '{PKG}.' + m not in sys.modules]\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'jaxlib', 'flax', 'handwriting_line_generation_tpu')]\n"
-        "print(bad)\n"
-        "sys.exit(1 if bad else 0)\n")
+        "       ('jax', 'jaxlib', 'flax', 'cv2',\n"
+        "        'handwriting_line_generation_tpu')]\n"
+        "print(bad, missing)\n"
+        "sys.exit(1 if bad or missing else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
@@ -222,6 +231,6 @@ def test_port_sources_name_no_jax():
             words = line.replace(",", " ").split()
             if words[:1] in (["import"], ["from"]):
                 mod = words[1].split(".")[0]
-                assert mod not in ("jax", "jaxlib", "flax",
+                assert mod not in ("jax", "jaxlib", "flax", "cv2",
                                    "handwriting_line_generation_tpu"), \
                     f"{path}: {line}"

@@ -10,6 +10,7 @@ configuration:
 import pytest
 import torch
 
+from handwriting_line_generation_tpu_torch.ops import ctc
 from handwriting_line_generation_tpu_torch.ops import gen_epilogue as ge
 
 pytestmark = pytest.mark.cuda
@@ -65,3 +66,103 @@ def test_gen_epilogue_rejects_bad_inputs(cuda):
         ge.block_epilogue(z.half(), n, w, g, b, apply_blur=False)
     with pytest.raises(ValueError, match="noise"):
         ge.block_epilogue(z, n[:, :2], w, g, b, apply_blur=False)
+
+
+# CTC kernel vs the plain recursion on the card, both float32.  The NLLs
+# agree to a few ulps (expf/logf against torch's exp/log).  The kernel's
+# gradient is exp(alpha + beta - ll), a difference of log-probabilities of
+# magnitude |ll| ~ 1e3 at T = 256 that float32 carries to ~1e-4 after T
+# steps of rounding, so each entry has that relative error; the plain
+# version's autograd never forms the difference.  The JAX package holds its
+# own Pallas kernel to its scan within rtol 1e-3 for the same reason.
+CTC_NLL_TOL = dict(rtol=1e-5, atol=1e-4)
+CTC_GRAD_TOL = dict(rtol=2e-3, atol=1e-5)
+
+
+def _ctc_inputs(dev, B, T, C, L, seed=0):
+    """log-softmax inputs with about a third of the frames masked, label
+    lengths in [1, L], plus a repeated-character label, a length-0 label
+    and (where L > T allows it) an impossible one."""
+    g = torch.Generator(dev).manual_seed(seed)
+    logits = torch.randn((B, T, C), generator=g, device=dev)
+    lp = torch.log_softmax(logits, -1)
+    lens = torch.randint(1, L + 1, (B,), generator=g, device=dev,
+                         dtype=torch.int32)
+    labels = torch.randint(1, C, (B, L), generator=g, device=dev,
+                           dtype=torch.int32)
+    labels = torch.where(torch.arange(L, device=dev)[None] < lens[:, None],
+                         labels, 0)
+    labels[0, :6] = torch.tensor([3, 3, 3, 7, 7, 1])
+    lens[0] = max(int(lens[0]), 6)
+    labels[1] = 0
+    lens[1] = 0
+    frames = torch.randint(2 * T // 3, T + 1, (B,), generator=g, device=dev)
+    return lp, labels.contiguous(), lens, frames
+
+
+def _ctc_both(lp, labels, lens, frames):
+    """(nll, grad) of the kernel and of the plain version, the gradient
+    of the mean loss w.r.t. the unmasked log-probs."""
+    out = []
+    for kernel in (True, False):
+        x = lp.clone().requires_grad_(True)
+        y = ctc.mask_frames_to_blank(x, frames)
+        B, T, _ = lp.shape
+        if kernel:
+            nll = ctc.ctc_loss_cuda(y, labels, lens, reduction="none")
+        else:
+            nll = ctc.ctc_loss(y, labels, torch.full_like(lens, T), lens,
+                               reduction="none")
+        (nll / torch.clamp(lens, min=1)).mean().backward()
+        out.append((nll.detach(), x.grad))
+    return out
+
+
+@pytest.mark.parametrize("T,L", [(48, 24), (256, 72), (336, 96), (5, 9)])
+def test_ctc_matches_plain(cuda, T, L):
+    lp, labels, lens, frames = _ctc_inputs(cuda, 8, T, 80, L)
+    before = ctc.ctc_loss_cuda.launches
+    (nll_k, g_k), (nll_p, g_p) = _ctc_both(lp, labels, lens, frames)
+    torch.cuda.synchronize()
+    assert ctc.ctc_loss_cuda.launches == before + 1
+    torch.testing.assert_close(nll_k, nll_p, **CTC_NLL_TOL)
+    torch.testing.assert_close(g_k, g_p, **CTC_GRAD_TOL)
+
+
+def test_ctc_impossible_label_zero_loss_and_grad(cuda):
+    lp, labels, lens, frames = _ctc_inputs(cuda, 4, 6, 20, 12)
+    lens[2] = 12                                  # 12 labels in 6 frames
+    labels[2] = torch.arange(1, 13, dtype=torch.int32, device=cuda)
+    x = lp.clone().requires_grad_(True)
+    nll = ctc.ctc_loss_cuda(x, labels, lens, reduction="none")
+    nll.sum().backward()
+    assert nll[2].item() == 0.0
+    assert (x.grad[2] == 0).all() and torch.isfinite(x.grad).all()
+
+
+def test_ctc_grad_repeats_bit_for_bit(cuda):
+    lp, labels, lens, frames = _ctc_inputs(cuda, 16, 256, 80, 72, seed=3)
+    grads = [_ctc_both(lp, labels, lens, frames)[0][1] for _ in range(2)]
+    assert torch.equal(grads[0], grads[1])
+
+
+def test_ctc_forward_only_when_no_grad(cuda):
+    lp, labels, lens, _ = _ctc_inputs(cuda, 4, 48, 80, 24)
+    with torch.no_grad():
+        a = ctc.ctc_loss_cuda(lp, labels, lens, reduction="none")
+    b = ctc.ctc_loss(lp, labels, torch.full_like(lens, 48), lens,
+                     reduction="none")
+    torch.testing.assert_close(a, b, **CTC_NLL_TOL)
+
+
+def test_ctc_rejects_bad_inputs(cuda):
+    lp, labels, lens, _ = _ctc_inputs(cuda, 4, 48, 80, 24)
+    with pytest.raises(TypeError):
+        ctc.ctc_loss_cuda(lp.double(), labels, lens)
+    with pytest.raises(TypeError):
+        ctc.ctc_loss_cuda(lp, labels.long(), lens)
+    with pytest.raises(ValueError, match="contiguous"):
+        ctc.ctc_loss_cuda(lp.transpose(0, 1).contiguous().transpose(0, 1),
+                          labels, lens)
+    with pytest.raises(ValueError):
+        ctc.ctc_loss_cuda(lp, labels[:2], lens)
