@@ -10,13 +10,17 @@ Phases, in order; any failure exits non-zero:
 2. build   — every CUDA source of the port, compiled by ``nvcc`` together;
 3. kernels — the generator epilogue against its plain PyTorch version on
    the card, at the paper-width block shapes (B = 8), float32 (TF32 off)
-   and bfloat16;
+   and bfloat16, with and without a conv bias;
 4. main path, generation — ``GenerationSession.render`` of 512 lines at
-   paper width (bf16, fused epilogue, seeded weights): shape, finiteness,
-   range, the epilogue's launch count, and agreement with the plain path;
+   paper width (bf16, fused epilogue, seeded weights, the styled blocks'
+   conv biases set non-zero): shape, finiteness, range, the epilogue's
+   launch count (one launch per call), and agreement with the plain path
+   in bf16 and in f32;
 5. timing, generation — lines/s, and at each of the main path's epilogue
-   calls (B = 512, bf16) the kernel checked against its plain version, then
-   its time beside the plain version's and its bound (CUDA events);
+   calls (B = 512, bf16, with a bias) the kernel checked against its plain
+   version, then its time beside the plain version's and its bound (CUDA
+   events), their ratio, and where the kernel keeps y between its phases
+   (``smem``: the cluster's shared memory; ``L2``: z re-read);
 6. CTC kernel — against its plain recursion on the card (TF32 off), at
    B = 16, C = 80 and the smallest, main and largest default buckets
    (T, L) = (48, 24), (256, 72), (336, 96), plus a bucket with L > T: a
@@ -30,7 +34,8 @@ Phases, in order; any failure exits non-zero:
    step's loss and gradients through the kernel against the plain CTC;
 8. timing, training and CTC — ms per train step and trained lines/s; the
    CTC kernel (forward + backward, forward only), its plain version and
-   ``F.ctc_loss`` at the three buckets, beside the bound;
+   ``F.ctc_loss`` at the three buckets, beside the bound; then, under
+   ``torch.profiler``, one CUDA launch per epilogue call (9 in a forward);
 9. summary — one JSON line of kernels, then the device line last.
 
 Imports nothing of JAX.  Exits non-zero without a CUDA device.
@@ -45,10 +50,11 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM memory rate
 F32_OPS_PER_S = 67e12              # H100 SXM float32 outside tensor cores
-# float operations per element of the epilogue: the separable blur (3 row
-# sums of 4 ops, 1 column sum of 4, 1 rounding), noise (2), leaky_relu (2),
-# statistics (3), normalize and affine (4)
-OPS_PER_ELEM = {True: 28, False: 11}
+# float operations per element of the epilogue: the bias add and its
+# rounding (2), the separable blur (3 row sums of 4 ops, 1 column sum of 4,
+# 1 rounding), noise (2), leaky_relu (2), statistics (3), normalize and
+# affine (4)
+OPS_PER_ELEM = {True: 30, False: 13}
 TOLERANCE = {                      # kernel vs plain, same inputs, on the card
     "float32": dict(atol=1e-4, rtol=0.0),
     # a different summation order of the statistics may flip one bf16
@@ -106,28 +112,55 @@ def epilogue_calls(dim=256, t=192):
 
 
 def epilogue_inputs(torch, b, c, h, w, dtype, seed):
+    """(z, noise, nweight, gamma, beta) and a conv bias, seeded."""
     g = torch.Generator("cuda").manual_seed(seed)
     rn = lambda *s: torch.randn(s, generator=g, device="cuda")
     return ((rn(b, h, w, c) * 2.0).to(dtype), rn(b, h, w).to(dtype),
             (rn(c) * 0.3).to(dtype), (1.0 + 0.5 * rn(b, c)).to(dtype),
-            rn(b, c).to(dtype))
+            rn(b, c).to(dtype)), (rn(c) * 0.5).to(dtype)
 
 
-def check_epilogue(torch, ge, args, blur, dname, label):
+def check_epilogue(torch, ge, args, blur, dname, label, bias=None):
     """Kernel against its plain version on the same inputs; raises past
     ``TOLERANCE[dname]``.  Returns the max abs error."""
     tol = TOLERANCE[dname]
-    got = ge.block_epilogue(*args, apply_blur=blur).float()
-    want = ge.block_epilogue_reference(*args, apply_blur=blur).float()
+    got = ge.block_epilogue(*args, apply_blur=blur, bias=bias).float()
+    want = ge.block_epilogue_reference(*args, apply_blur=blur,
+                                       bias=bias).float()
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     ok = torch.allclose(got, want, **tol)
-    print(f"gen_epilogue {dname} {label} blur={blur}: max_abs_err {err:.3e} "
+    print(f"gen_epilogue {dname} {label} blur={blur} "
+          f"bias={bias is not None}: max_abs_err {err:.3e} "
           f"(atol {tol['atol']}, rtol {tol['rtol']}) "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError("gen_epilogue disagrees with its plain version")
     return err
+
+
+def count_device_kernels(torch, name, fn):
+    """How many kernels whose name holds ``name`` ran on the card in
+    ``fn()``, by ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(evt.count for evt in prof.key_averages()
+               if evt.device_type == torch.autograd.DeviceType.CUDA
+               and name in evt.key)
+
+
+def seed_conv_biases(torch, generator, seed):
+    """Set every styled block's conv1 and conv2 bias to seeded non-zero
+    values (the seeded init makes them 0), so a bias that the kernel path
+    drops or adds twice shows against the plain path."""
+    g = torch.Generator("cpu").manual_seed(seed)
+    with torch.no_grad():
+        for blk in generator.blocks:
+            for layer in (blk.conv1, blk.conv2):
+                layer.bias.copy_(0.05 * torch.randn(layer.bias.shape,
+                                                   generator=g))
 
 
 def ctc_inputs(torch, ctc, B, T, C, L, seed):
@@ -361,15 +394,17 @@ def main():
                    reverse=True)
     for dname in TOLERANCE:
         for c, h, w, blur in cases:
-            args = epilogue_inputs(torch, CHECK_BATCH, c, h, w,
-                                   getattr(torch, dname),
-                                   seed=c + h + int(blur))
-            max_err = max(max_err, check_epilogue(
-                torch, ge, args, blur, dname,
-                f"B={CHECK_BATCH} C={c} H={h} W={w}"))
+            args, bias = epilogue_inputs(torch, CHECK_BATCH, c, h, w,
+                                         getattr(torch, dname),
+                                         seed=c + h + int(blur))
+            for b in (None, bias):
+                max_err = max(max_err, check_epilogue(
+                    torch, ge, args, blur, dname,
+                    f"B={CHECK_BATCH} C={c} H={h} W={w}", bias=b))
 
     # 4. main path: paper width, bf16, fused epilogue, 512 lines
     session, labels, lens, styles = bench.build(MAIN_BATCH)
+    seed_conv_biases(torch, session.model.generator, seed=1)
     texts = [bench.TEXT] * MAIN_BATCH
     styles_np = styles.cpu().numpy()
     ge.block_epilogue.launches = 0
@@ -391,7 +426,8 @@ def main():
                            spaced_len=bench.SPACED_LEN)
     session.model.generator.fused_epilogue = True
     mad = float(np.abs(img - plain).mean())
-    print(f"main path bf16 kernel vs plain path: mean abs diff {mad:.3e} "
+    print(f"main path bf16, non-zero conv biases, kernel vs plain path: "
+          f"mean abs diff {mad:.3e} "
           f"(bound {BF16_MEAN_ABS_BOUND}), max {np.abs(img - plain).max():.3e}")
     if not mad <= BF16_MEAN_ABS_BOUND:
         raise AssertionError("bf16 render disagrees with the plain path")
@@ -399,6 +435,7 @@ def main():
     cfg32.compute_dtype = "float32"
     s32 = GenerationSession(init_model(cfg32, seed=0), session.charset,
                             device=DEVICE)
+    seed_conv_biases(torch, s32.model.generator, seed=1)
     few = slice(0, 4)
     outs = []
     for fused in (True, False):
@@ -407,7 +444,8 @@ def main():
                              spaced_len=bench.SPACED_LEN, seed=0)
         outs.append(out)
     e32 = (outs[0] - outs[1]).abs().max().item()
-    print(f"f32 forward (B=4) kernel vs plain path: max abs diff {e32:.3e} "
+    print(f"f32 forward (B=4), non-zero conv biases, kernel vs plain path: "
+          f"max abs diff {e32:.3e} "
           f"(bound {F32_MAX_ABS_BOUND})", flush=True)
     if not e32 <= F32_MAX_ABS_BOUND:
         raise AssertionError("f32 forward disagrees with the plain path")
@@ -420,17 +458,18 @@ def main():
     k_ms = p_ms = b_ms = 0.0
     bound_by = "bytes"
     for blk, c, h, w, blur in epilogue_calls():
-        args = epilogue_inputs(torch, MAIN_BATCH, c, h, w, torch.bfloat16,
-                               seed=blk)
+        args, bias = epilogue_inputs(torch, MAIN_BATCH, c, h, w,
+                                     torch.bfloat16, seed=blk)
         max_err = max(max_err, check_epilogue(
             torch, ge, args, blur, "bfloat16",
-            f"block {blk} B={MAIN_BATCH} C={c} H={h} W={w}"))
+            f"block {blk} B={MAIN_BATCH} C={c} H={h} W={w}", bias=bias))
         t_k = tt.event_ms(lambda: ge.block_epilogue(
-            *args, apply_blur=blur), iters=20)
+            *args, apply_blur=blur, bias=bias), iters=20)
         t_p = tt.event_ms(lambda: ge.block_epilogue_reference(
-            *args, apply_blur=blur), iters=3, warmup=1)
+            *args, apply_blur=blur, bias=bias), iters=3, warmup=1)
+        plan = ge.plan(args[0].shape, torch.bfloat16, blur)
         n = MAIN_BATCH * h * w
-        nbytes = (2 * n * c + n + c + 2 * MAIN_BATCH * c) * 2
+        nbytes = (2 * n * c + n + 2 * c + 2 * MAIN_BATCH * c) * 2
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = n * c * OPS_PER_ELEM[blur] / F32_OPS_PER_S * 1e3
         if t_ops > t_bytes:
@@ -439,8 +478,11 @@ def main():
         k_ms, p_ms, b_ms = k_ms + t_k, p_ms + t_p, b_ms + bound
         print(f"gen_epilogue block {blk} C={c} H={h} W={w} blur={blur} "
               f"B={MAIN_BATCH} bf16: kernel {t_k:.4f} ms, plain {t_p:.4f} "
-              f"ms, bound {bound:.4f} ms ({nbytes / 1e9:.3f} GB) {card}",
-              flush=True)
+              f"ms, bound {bound:.4f} ms ({nbytes / 1e9:.3f} GB), kernel / "
+              f"bound {t_k / bound:.2f}; y from {plan['y_from']} (cluster "
+              f"{plan['cluster']}, {plan['pixels_per_rank']} pixels per rank, "
+              f"{plan['threads']} threads, {plan['smem_bytes']} B shared) "
+              f"{card}", flush=True)
         del args
     print(f"gen_epilogue per forward (9 calls): kernel {k_ms:.4f} ms, plain "
           f"{p_ms:.4f} ms, bound {b_ms:.4f} ms {card}")
@@ -472,6 +514,17 @@ def main():
     ctc_times = [time_ctc(torch, tt, F, ctc, T, L, card)
                  for T, L in CTC_BUCKETS]
     main_t = ctc_times[CTC_MAIN]
+    # one CUDA launch per epilogue call, seen by the profiler (last, so
+    # that its hooks touch no timed phase), on a small paper-width session
+    small, s_labels, s_lens, s_styles = bench.build(CHECK_BATCH)
+    cuda_launches = count_device_kernels(
+        torch, "epilogue_kernel", lambda: small.forward(
+            s_labels, s_lens, s_styles, spaced_len=bench.SPACED_LEN, seed=0))
+    print(f"generation forward (B={CHECK_BATCH}): {cuda_launches} CUDA "
+          f"kernel launches named epilogue_kernel (profiler)", flush=True)
+    if cuda_launches != 9:
+        raise AssertionError(f"expected one CUDA launch per epilogue call, "
+                             f"9 per forward; got {cuda_launches}")
 
     # 9. summary
     print(smi)

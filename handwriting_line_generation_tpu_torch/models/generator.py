@@ -10,8 +10,11 @@ second AdaIN into the final 1x1 equal conv.
 
 With ``fused_epilogue`` each block's ``[blur] -> noise -> lrelu -> AdaIN``
 runs as one :func:`ops.gen_epilogue.block_epilogue` call (the CUDA kernel on
-the card): 9 calls per forward.  Activations stay in ``channels_last``
-memory so the NHWC view the kernel takes is contiguous, without a copy.
+the card): 9 calls per forward.  The conv before each call runs without its
+bias and the epilogue adds it as it loads, so the bias costs no pass of its
+own; the last block's second conv, which feeds the deferred AdaIN, keeps
+its bias.  Activations stay in ``channels_last`` memory so the NHWC view
+the kernel takes is contiguous, without a copy.
 
 Inference only: dropout is the identity.  ``small`` and
 ``phase_upsample`` are not ported.
@@ -82,11 +85,14 @@ class StyledConvBlock(nn.Module):
         self.noise2 = NoiseInjection(features)
         self.adain2 = AdaIN(features, style_dim, dtype)
 
-    def _epilogue(self, x, style, noise, apply_blur, inj, ada):
+    def _epilogue(self, x, style, noise, apply_blur, inj, ada, conv_layer):
+        """``x`` came from ``conv_layer`` run without its bias; the kernel
+        adds it."""
         gamma, beta = ada.affine(style)
         z = x.permute(0, 2, 3, 1).contiguous()   # free for channels_last x
         out = block_epilogue(z, noise, inj.weight, gamma, beta,
-                             apply_blur=apply_blur)
+                             apply_blur=apply_blur,
+                             bias=conv_layer.bias.to(self.dtype))
         return out.permute(0, 3, 1, 2)
 
     def _sequential(self, x, style, noise, inj, ada, normalize=True):
@@ -99,32 +105,36 @@ class StyledConvBlock(nn.Module):
                 fused_epilogue: bool = False):
         blur_in_epilogue = fused_epilogue and self.upsample
         dt = self.dtype
+        # with the fused epilogue, the conv bias moves into the kernel
+        bias1 = not fused_epilogue
+        bias2 = not fused_epilogue or self.defer_final_adain
         if self.initial:
-            x = conv(F.pad(x, (1, 1, 3, 3)), self.conv1, dt)
+            x = conv(F.pad(x, (1, 1, 3, 3)), self.conv1, dt, bias=bias1)
             x = x.contiguous(memory_format=torch.channels_last)
         elif self.upsample:
             if self.fused:
-                x = self.conv1(x)
+                x = self.conv1(x, bias=bias1)
             else:
                 scale = (2, 1) if self.only_vertical else (2, 2)
-                x = conv(upsample_nearest(x, scale), self.conv1, dt, 1)
+                x = conv(upsample_nearest(x, scale), self.conv1, dt, 1,
+                         bias=bias1)
             if not blur_in_epilogue:
                 x = blur3x3(x)
         else:
-            x = conv(x, self.conv1, dt, 1)
+            x = conv(x, self.conv1, dt, 1, bias=bias1)
 
         n1 = _noise_plane(x, None if noise is None else noise[0], generator)
         if fused_epilogue:
             x = self._epilogue(x, style, n1, blur_in_epilogue, self.noise1,
-                               self.adain1)
+                               self.adain1, self.conv1)
         else:
             x = self._sequential(x, style, n1, self.noise1, self.adain1)
 
-        x = conv(x, self.conv2, dt, 1)
+        x = conv(x, self.conv2, dt, 1, bias=bias2)
         n2 = _noise_plane(x, None if noise is None else noise[1], generator)
         if fused_epilogue and not self.defer_final_adain:
             return self._epilogue(x, style, n2, False, self.noise2,
-                                  self.adain2)
+                                  self.adain2, self.conv2)
         return self._sequential(x, style, n2, self.noise2, self.adain2,
                                 normalize=not self.defer_final_adain)
 

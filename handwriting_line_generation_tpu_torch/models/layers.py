@@ -99,11 +99,13 @@ def dense(x: torch.Tensor, linear: nn.Linear, dtype: torch.dtype
 
 
 def conv(x: torch.Tensor, layer: nn.Module, dtype: torch.dtype,
-         padding=0, dilation=1) -> torch.Tensor:
+         padding=0, dilation=1, bias: bool = True) -> torch.Tensor:
     """flax ``nn.Conv(dtype=...)`` through a ``Conv1d``/``Conv2d``'s
-    params: input, kernel and bias cast to ``dtype``."""
+    params: input, kernel and bias cast to ``dtype``.  ``bias=False`` leaves
+    the bias out, for a caller that adds it later."""
     fn = F.conv2d if layer.weight.ndim == 4 else F.conv1d
-    return fn(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype),
+    return fn(x.to(dtype), layer.weight.to(dtype),
+              layer.bias.to(dtype) if bias else None,
               padding=padding, dilation=dilation)
 
 
@@ -243,9 +245,12 @@ class FusedUpsample(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.mult = math.sqrt(2.0 / (in_ch * 9))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
+        """``bias=False`` leaves the bias out, for a caller that adds it
+        later."""
         wp = F.pad(self.weight * self.mult, (1, 1, 1, 1))
         w4 = (wp[:, :, 1:, 1:] + wp[:, :, :-1, 1:] + wp[:, :, 1:, :-1]
               + wp[:, :, :-1, :-1]) / 4.0
-        return F.conv_transpose2d(x, w4.to(x.dtype), self.bias.to(x.dtype),
+        return F.conv_transpose2d(x, w4.to(x.dtype),
+                                  self.bias.to(x.dtype) if bias else None,
                                   stride=2, padding=1)

@@ -11,8 +11,9 @@ Counterpart of ``handwriting_line_generation_tpu/ops/ctc.py`` and of
   scan, differentiable by autograd.  It is the CPU path and the kernel's
   plain version.
 * :func:`ctc_loss_cuda` — the hand-written CUDA kernel ``csrc/ctc.cu``
-  (forward and, when log_probs requires grad, the fused beta + gradient
-  pass in the same launch) inside a ``torch.autograd.Function``.  It needs
+  (the alpha recursion and, when log_probs requires grad, the beta
+  recursion beside it and the gradient, in the same launch) inside a
+  ``torch.autograd.Function``.  It needs
   a uniform logit length ``T``: the recognizers emit ``T = W/4`` frames for
   every sample and :func:`mask_frames_to_blank` confines each sample to its
   own frames.
@@ -35,7 +36,7 @@ from handwriting_line_generation_tpu_torch import kernels
 
 NEG_INF = -1e30
 _BAD_NLL = 0.5 * -NEG_INF
-_MAX_STATES = 1024                 # one thread per state in the kernel
+_MAX_STATES = 1024                 # 8 warps x 32 lanes x 4 states
 
 
 def _extend_labels(labels: torch.Tensor) -> torch.Tensor:
@@ -183,7 +184,8 @@ def _launch(log_probs, labels, label_lengths, compute_grad: bool):
     grad = scratch = None
     if compute_grad:
         grad = torch.empty_like(log_probs)
-        scratch = torch.empty((B, T, 2 * L + 1), dtype=torch.float32,
+        # alpha rows, then beta rows
+        scratch = torch.empty((2, B, T, 2 * L + 1), dtype=torch.float32,
                               device=dev)
     ptr = lambda t: 0 if t is None else t.data_ptr()
     err = _library().ctc_forward_backward(

@@ -1,4 +1,5 @@
-"""Generator block epilogue: ``[blur] -> +noise -> leaky_relu -> AdaIN``.
+"""Generator block epilogue: ``[+bias] -> [blur] -> +noise -> leaky_relu
+-> AdaIN``.
 
 Counterpart of ``handwriting_line_generation_tpu/ops/gen_epilogue.py``.
 :func:`block_epilogue` launches the hand-written CUDA kernel
@@ -7,45 +8,54 @@ version :func:`block_epilogue_reference` for a CPU tensor; any other
 device raises.  Both compute, per sample and channel of an NHWC ``z``, in
 float32 with bfloat16 rounding at the JAX kernel's points:
 
-  y   = leaky_relu_0.2([blur3x3](z) + round(noise * round(sqrt(2) * w)))
+  x   = round(z + bias)                     (when a conv bias is given)
+  y   = leaky_relu_0.2([blur3x3](x) + round(noise * round(sqrt(2) * w)))
   out = gamma * round((y - mean) * rstd) + beta
 
 with one-pass float32 instance statistics ``var = max(E[y^2] - E[y]^2, 0)``
-and ``rstd = 1 / sqrt(var + eps)``.  Inference only: no backward.
+and ``rstd = 1 / sqrt(var + eps)``.  The bias is the preceding conv's: the
+caller runs the conv without it, so the add costs no pass of its own.
+Inference only: no backward.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from handwriting_line_generation_tpu_torch import kernels
 
-# elements of one sample that one block of the stats / apply passes covers
-_CHUNK_ELEMS = 8192
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _prepare(z, noise, nweight, gamma, beta):
+def _prepare(z, noise, nweight, gamma, beta, bias):
     """Inputs in z's dtype, the noise weight pre-scaled by sqrt(2) and
     rounded once, as the JAX wrapper does."""
     nw = (nweight.reshape(-1) * math.sqrt(2.0)).to(z.dtype)
-    return noise.to(z.dtype), nw, gamma.to(z.dtype), beta.to(z.dtype)
+    bias = None if bias is None else bias.reshape(-1).to(z.dtype)
+    return (noise.to(z.dtype), nw, gamma.to(z.dtype), beta.to(z.dtype),
+            bias)
 
 
 def block_epilogue_reference(z: torch.Tensor, noise: torch.Tensor,
                              nweight: torch.Tensor, gamma: torch.Tensor,
                              beta: torch.Tensor, *, apply_blur: bool,
-                             eps: float = 1e-5) -> torch.Tensor:
+                             eps: float = 1e-5,
+                             bias: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
     """Plain PyTorch version of the kernel, op for op."""
-    noise, nw, gamma, beta = _prepare(z, noise, nweight, gamma, beta)
+    noise, nw, gamma, beta, bias = _prepare(z, noise, nweight, gamma, beta,
+                                            bias)
     dt = z.dtype
     rnd = (lambda t: t.to(dt).float()) if dt != torch.float32 \
         else (lambda t: t)
     x = z.float()
+    if bias is not None:
+        x = rnd(x + bias.float())
     if apply_blur:
         xp = F.pad(x, (0, 0, 0, 0, 1, 1))                     # rows
         x = (xp[:, :-2] + 2.0 * xp[:, 1:-1] + xp[:, 2:]) * 0.25
@@ -67,13 +77,32 @@ def _library() -> ctypes.CDLL:
     lib = kernels.load("gen_epilogue")
     fn = lib.gen_epilogue_forward
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    plan = lib.gen_epilogue_plan
+    plan.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    plan.restype = ctypes.c_int
     return lib
 
 
-def _check(z, noise, nw, gamma, beta):
+def plan(shape, dtype: torch.dtype, apply_blur: bool) -> dict:
+    """How the kernel cuts up a call on ``z`` of ``shape`` ``[B, H, W, C]``:
+    cluster size, pixels per rank, threads, ring tile width (L2 mode with the
+    blur), where phase 2 takes y from (``"smem"``: the band stays in shared
+    memory; ``"L2"``: z re-read) and the shared memory per block.  Builds
+    the kernel if needed."""
+    _, H, W, C = shape
+    out = (ctypes.c_longlong * 6)()
+    err = _library().gen_epilogue_plan(H, W, C, int(dtype == torch.bfloat16),
+                                       int(apply_blur), out)
+    if err != 0:
+        raise RuntimeError(f"gen_epilogue has no plan for {tuple(shape)}")
+    return {"cluster": out[0], "pixels_per_rank": out[1], "threads": out[2],
+            "tile_w": out[3], "y_from": "smem" if out[4] else "L2",
+            "smem_bytes": out[5]}
+
+
+def _check(z, noise, nw, gamma, beta, bias):
     if z.dtype not in _DTYPES:
         raise TypeError(f"block_epilogue takes float32 or bfloat16, "
                         f"got {z.dtype}")
@@ -82,6 +111,8 @@ def _check(z, noise, nw, gamma, beta):
     B, H, W, C = z.shape
     want = {"noise": (noise, (B, H, W)), "nweight": (nw, (C,)),
             "gamma": (gamma, (B, C)), "beta": (beta, (B, C))}
+    if bias is not None:
+        want["bias"] = (bias, (C,))
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
@@ -94,20 +125,16 @@ def _check(z, noise, nw, gamma, beta):
         raise ValueError("z must be 16-byte aligned")
 
 
-def _launch(z, noise, nw, gamma, beta, apply_blur, eps):
-    _check(z, noise, nw, gamma, beta)
+def _launch(z, noise, nw, gamma, beta, bias, apply_blur, eps):
+    _check(z, noise, nw, gamma, beta, bias)
     B, H, W, C = z.shape
-    pix_per_chunk = max(1, _CHUNK_ELEMS // C)
-    nchunks = -(-(H * W) // pix_per_chunk)
     out = torch.empty_like(z)
-    scratch = torch.empty(2 * B * nchunks * C + 2 * B * C,
-                          dtype=torch.float32, device=z.device)
     stream = torch.cuda.current_stream(z.device).cuda_stream
     err = _library().gen_epilogue_forward(
-        z.data_ptr(), noise.data_ptr(), nw.data_ptr(), gamma.data_ptr(),
-        beta.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        B, H, W, C, int(z.dtype == torch.bfloat16), int(apply_blur),
-        float(eps), pix_per_chunk, nchunks, stream)
+        z.data_ptr(), noise.data_ptr(), nw.data_ptr(),
+        None if bias is None else bias.data_ptr(), gamma.data_ptr(),
+        beta.data_ptr(), out.data_ptr(), B, H, W, C,
+        int(z.dtype == torch.bfloat16), int(apply_blur), float(eps), stream)
     if err != 0:
         raise RuntimeError(f"gen_epilogue kernel launch failed: CUDA error "
                            f"{err}")
@@ -118,27 +145,33 @@ def _launch(z, noise, nw, gamma, beta, apply_blur, eps):
 def block_epilogue(z: torch.Tensor, noise: torch.Tensor,
                    nweight: torch.Tensor, gamma: torch.Tensor,
                    beta: torch.Tensor, *, apply_blur: bool,
-                   eps: float = 1e-5) -> torch.Tensor:
-    """``[blur] -> x + sqrt2*w*noise -> lrelu -> AdaIN`` on NHWC ``z``.
+                   eps: float = 1e-5,
+                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``[+bias] -> [blur] -> x + sqrt2*w*noise -> lrelu -> AdaIN`` on NHWC
+    ``z``, in one kernel launch on the card.
 
     Args:
       z: ``[B, H, W, C]`` conv output (pre-noise), float32 or bfloat16.
       noise: ``[B, H, W]`` standard-normal plane shared across channels.
       nweight: ``[C]`` NoiseInjection weight (not yet sqrt(2)-scaled).
       gamma, beta: ``[B, C]`` AdaIN affine from the style.
+      bias: optional ``[C]`` bias of the conv that made ``z`` without it;
+        added first, rounded once to z's dtype.
     Returns ``[B, H, W, C]`` in z's dtype.  A CUDA tensor goes through the
     kernel (``block_epilogue.launches`` counts its launches); a CPU tensor
     through :func:`block_epilogue_reference`.
     """
     if z.device.type == "cpu":
         return block_epilogue_reference(z, noise, nweight, gamma, beta,
-                                        apply_blur=apply_blur, eps=eps)
+                                        apply_blur=apply_blur, eps=eps,
+                                        bias=bias)
     if z.device.type != "cuda":
         raise ValueError(f"block_epilogue runs on cuda or cpu, not "
                          f"{z.device}")
-    noise, nw, gamma, beta = _prepare(z, noise, nweight, gamma, beta)
+    noise, nw, gamma, beta, bias = _prepare(z, noise, nweight, gamma, beta,
+                                            bias)
     return _launch(z, noise.contiguous(), nw, gamma.contiguous(),
-                   beta.contiguous(), apply_blur, eps)
+                   beta.contiguous(), bias, apply_blur, eps)
 
 
 block_epilogue.launches = 0

@@ -41,31 +41,103 @@ def _sub(sd, prefix):
             if k.startswith(prefix)}
 
 
-@pytest.mark.parametrize("fused", [False, True])
-def test_spaced_generator_matches_jax_f32(fused):
-    """Injected noise, f32: rtol = atol = 1e-4 (as the JAX package's own
-    fused-vs-sequential test); the fused case runs the JAX kernel in
-    interpret mode and the port's plain epilogue."""
-    rng = np.random.default_rng(0)
-    params = init_params(_cfg(), seed=3)
-    gp = params["generator"]
+_CONV_BIASES = ("Conv_0", "Conv_1", "ConvTranspose_0", "FusedUpsample_0")
+
+
+def _with_conv_biases(gp, seed):
+    """A copy of generator params whose styled blocks' conv and
+    FusedUpsample biases are non-zero (the seeded init makes them 0, so a
+    bias dropped or added twice would not show)."""
+    rng = np.random.default_rng(seed)
+    out = dict(gp)
+    for blk, sub in gp.items():
+        if not blk.startswith("StyledConvBlock_"):
+            continue
+        out[blk] = dict(sub)
+        for name in _CONV_BIASES:
+            if name in sub:
+                layer = dict(sub[name])
+                layer["bias"] = rng.normal(
+                    scale=0.5, size=np.shape(layer["bias"])).astype(np.float32)
+                out[blk][name] = layer
+    return out
+
+
+def _generator_inputs(rng):
     oh = np.eye(NC, dtype=np.float32)[rng.integers(0, NC, (B, T))]
     style = rng.normal(size=(B, S)).astype(np.float32)
     hs, ws = [4, 8, 16, 32, 64], [T, T, T, 2 * T, 4 * T]
     noise = [rng.normal(size=(B, h, w, 1)).astype(np.float32)
              for h, w in zip(hs, ws) for _ in range(2)]
+    return oh, style, noise
+
+
+def _torch_generator(gp, fused):
+    gen = SpacedGenerator(num_class=NC, style_dim=S, dim=DIM,
+                          fused_epilogue=fused)
+    gen.load_state_dict(_sub(convert_params({"generator": gp}),
+                             "generator."))
+    return gen
+
+
+@pytest.mark.parametrize("fused,biased", [
+    pytest.param(False, False, id="False"),
+    pytest.param(True, False, id="True"),
+    pytest.param(False, True, id="False-bias"),
+    pytest.param(True, True, id="True-bias")])
+def test_spaced_generator_matches_jax_f32(fused, biased):
+    """Injected noise, f32: rtol = atol = 1e-4 (as the JAX package's own
+    fused-vs-sequential test); the fused case runs the JAX kernel in
+    interpret mode and the port's plain epilogue.  The ``-bias`` cases set
+    every conv and FusedUpsample bias of the styled blocks non-zero in the
+    numpy params before both packages run."""
+    rng = np.random.default_rng(0)
+    params = init_params(_cfg(), seed=3)
+    gp = params["generator"]
+    if biased:
+        gp = _with_conv_biases(gp, seed=7)
+    oh, style, noise = _generator_inputs(rng)
     jgen = JSpacedGenerator(num_class=NC, style_dim=S, dim=DIM,
                             fused_epilogue=fused)
     want = np.asarray(jgen.apply({"params": gp}, jnp.asarray(oh),
                                  jnp.asarray(style),
                                  noise=[jnp.asarray(n) for n in noise]))
-    gen = SpacedGenerator(num_class=NC, style_dim=S, dim=DIM,
-                          fused_epilogue=fused)
-    gen.load_state_dict(_sub(convert_params(params), "generator."))
+    gen = _torch_generator(gp, fused)
     with torch.no_grad():
         got = gen(torch.from_numpy(oh), torch.from_numpy(style),
                   noise=[torch.from_numpy(n) for n in noise]).numpy()
     assert got.shape == (B, 64, 4 * T, 1)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_fused_block_moves_conv_bias_into_epilogue(monkeypatch):
+    """With non-zero conv biases, the fused generator hands each of its 9
+    epilogue calls its conv's bias and runs that conv without it: its
+    output matches the sequential path (which adds the bias in the conv)
+    within 1e-4 in f32, so no bias is dropped or added twice."""
+    from handwriting_line_generation_tpu_torch.models import generator
+    gp = _with_conv_biases(init_params(_cfg(), seed=3)["generator"], seed=8)
+    oh, style, noise = _generator_inputs(np.random.default_rng(1))
+    args = (torch.from_numpy(oh), torch.from_numpy(style))
+    kw = dict(noise=[torch.from_numpy(n) for n in noise])
+    biases = []
+    real = generator.block_epilogue
+
+    def spy(*a, bias=None, **k):
+        biases.append(bias)
+        return real(*a, bias=bias, **k)
+    monkeypatch.setattr(generator, "block_epilogue", spy)
+    fused, seq = _torch_generator(gp, True), _torch_generator(gp, False)
+    with torch.no_grad():
+        got = fused(*args, **kw).numpy()
+        want = seq(*args, **kw).numpy()
+    assert len(biases) == 9
+    convs = [blk.conv1 for blk in fused.blocks] + \
+        [blk.conv2 for blk in fused.blocks[:4]]
+    assert all(b is not None and b.abs().max() > 0 for b in biases)
+    assert sorted(b.tolist() for b in biases) == \
+        sorted(c.bias.tolist() for c in convs)
+    assert np.abs(want).max() > 0.05
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 

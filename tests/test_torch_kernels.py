@@ -36,24 +36,65 @@ def _inputs(dev, B, H, W, C, dtype, seed=0):
             rn(B, C).to(dtype))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("blur", [False, True])
-@pytest.mark.parametrize("C,H,W", [(256, 4, 24), (16, 64, 96), (6, 5, 7),
-                                   (2, 3, 33), (48, 8, 20)])
-def test_gen_epilogue_matches_plain(cuda, dtype, blur, C, H, W):
-    args = _inputs(cuda, 3, H, W, C, dtype)
+def _bias(dev, C, dtype, seed=5):
+    g = torch.Generator(dev).manual_seed(seed)
+    return (0.5 * torch.randn(C, generator=g, device=dev)).to(dtype)
+
+
+def _check_epilogue(dev, dtype, blur, C, H, W, B=3, bias=False):
+    args = _inputs(dev, B, H, W, C, dtype)
+    kw = dict(apply_blur=blur, bias=_bias(dev, C, dtype) if bias else None)
     before = ge.block_epilogue.launches
-    got = ge.block_epilogue(*args, apply_blur=blur)
+    got = ge.block_epilogue(*args, **kw)
     torch.cuda.synchronize()
     assert ge.block_epilogue.launches == before + 1
-    want = ge.block_epilogue_reference(*args, apply_blur=blur)
+    want = ge.block_epilogue_reference(*args, **kw)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+SHAPES = [(256, 4, 24), (16, 64, 96), (6, 5, 7), (2, 3, 33), (48, 8, 20)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("blur", [False, True])
+@pytest.mark.parametrize("C,H,W", SHAPES)
+def test_gen_epilogue_matches_plain(cuda, dtype, blur, C, H, W):
+    _check_epilogue(cuda, dtype, blur, C, H, W)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("blur", [False, True])
+@pytest.mark.parametrize("C,H,W", SHAPES)
+def test_gen_epilogue_with_bias_matches_plain(cuda, dtype, blur, C, H, W):
+    _check_epilogue(cuda, dtype, blur, C, H, W, bias=True)
+
+
+# the generator's last block: one sample is 1.5 MB in bf16 and 3 MB in f32,
+# far more than one block's 227 KB of shared memory.  bf16 keeps the sample
+# in the cluster's shared memory; f32 does not fit and re-reads z from L2
+@pytest.mark.parametrize("dtype,y_from", [(torch.float32, "L2"),
+                                          (torch.bfloat16, "smem")])
+@pytest.mark.parametrize("blur", [False, True])
+def test_gen_epilogue_sample_larger_than_a_block(cuda, dtype, y_from, blur):
+    shape = (2, 64, 768, 16)
+    plan = ge.plan(shape, dtype, blur)
+    assert plan["cluster"] == 8 and plan["y_from"] == y_from
+    _check_epilogue(cuda, dtype, blur, 16, 64, 768, B=2, bias=True)
 
 
 def test_gen_epilogue_repeats_bit_for_bit(cuda):
     args = _inputs(cuda, 4, 16, 64, 32, torch.bfloat16, seed=1)
     a = ge.block_epilogue(*args, apply_blur=True)
     b = ge.block_epilogue(*args, apply_blur=True)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gen_epilogue_with_bias_repeats_bit_for_bit(cuda, dtype):
+    args = _inputs(cuda, 2, 64, 768, 16, dtype, seed=2)
+    bias = _bias(cuda, 16, dtype)
+    a = ge.block_epilogue(*args, apply_blur=True, bias=bias)
+    b = ge.block_epilogue(*args, apply_blur=True, bias=bias)
     assert torch.equal(a, b)
 
 
@@ -92,8 +133,9 @@ def _ctc_inputs(dev, B, T, C, L, seed=0):
                            dtype=torch.int32)
     labels = torch.where(torch.arange(L, device=dev)[None] < lens[:, None],
                          labels, 0)
-    labels[0, :6] = torch.tensor([3, 3, 3, 7, 7, 1])
-    lens[0] = max(int(lens[0]), 6)
+    rep = torch.tensor([3, 3, 3, 7, 7, 1])[:L]
+    labels[0, :len(rep)] = rep
+    lens[0] = max(int(lens[0]), len(rep))
     labels[1] = 0
     lens[1] = 0
     frames = torch.randint(2 * T // 3, T + 1, (B,), generator=g, device=dev)
@@ -118,7 +160,16 @@ def _ctc_both(lp, labels, lens, frames):
     return out
 
 
-@pytest.mark.parametrize("T,L", [(48, 24), (256, 72), (336, 96), (5, 9)])
+# the four buckets; S = 2L + 1 on each side of a multiple of 32: L = 15, 16
+# (forward only, one warp of one state a lane, then two; with the gradient,
+# one warp of two states a lane) and L = 31, 32 (with the gradient, one
+# warp, then two); a recursion over 5 warps (L = 130) and over 8 warps with
+# 4 states a lane (L = 511); and T = 1
+CTC_SHAPES = [(48, 24), (256, 72), (336, 96), (5, 9), (40, 15), (40, 16),
+              (80, 31), (80, 32), (200, 130), (336, 511), (1, 3)]
+
+
+@pytest.mark.parametrize("T,L", CTC_SHAPES)
 def test_ctc_matches_plain(cuda, T, L):
     lp, labels, lens, frames = _ctc_inputs(cuda, 8, T, 80, L)
     before = ctc.ctc_loss_cuda.launches
@@ -146,12 +197,16 @@ def test_ctc_grad_repeats_bit_for_bit(cuda):
     assert torch.equal(grads[0], grads[1])
 
 
-def test_ctc_forward_only_when_no_grad(cuda):
-    lp, labels, lens, _ = _ctc_inputs(cuda, 4, 48, 80, 24)
+@pytest.mark.parametrize("T,L", CTC_SHAPES)
+def test_ctc_forward_only_when_no_grad(cuda, T, L):
+    lp, labels, lens, frames = _ctc_inputs(cuda, 8, T, 80, L)
+    lp = ctc.mask_frames_to_blank(lp, frames)
+    before = ctc.ctc_loss_cuda.launches
     with torch.no_grad():
         a = ctc.ctc_loss_cuda(lp, labels, lens, reduction="none")
-    b = ctc.ctc_loss(lp, labels, torch.full_like(lens, 48), lens,
+    b = ctc.ctc_loss(lp, labels, torch.full_like(lens, T), lens,
                      reduction="none")
+    assert ctc.ctc_loss_cuda.launches == before + 1
     torch.testing.assert_close(a, b, **CTC_NLL_TOL)
 
 
