@@ -34,9 +34,22 @@ Phases, in order; any failure exits non-zero:
    step's loss and gradients through the kernel against the plain CTC;
 8. timing, training and CTC — ms per train step and trained lines/s; the
    CTC kernel (forward + backward, forward only), its plain version and
-   ``F.ctc_loss`` at the three buckets, beside the bound; then, under
-   ``torch.profiler``, one CUDA launch per epilogue call (9 in a forward);
-9. summary — one JSON line of kernels, then the device line last.
+   ``F.ctc_loss`` at the three buckets, beside the bound;
+9. main path, style extraction and autoencode — the paper model
+   (``configs/iam_gan_paper.json``'s ``model``: ``cnn_only`` recognizer,
+   char style encoder, generator 256, spacer; f32, fused epilogue, seeded
+   weights and conv biases) on B = 64 u8 glyph lines of 64 x 1024, 32
+   author pairs: ``extract_style`` (finite [64, 128] style, equal rows per
+   pair), ``viterbi_align`` on the card bit-equal to the CPU,
+   ``autoencode`` with 9 epilogue launches against the plain epilogue path
+   (max abs <= 1e-3), the card's styles against the CPU's (TF32 off), and
+   ``StyleExtractor.extract_dataset`` over an ``AuthorBatcher`` behind a
+   ``Prefetcher`` (one row per pair, in order, with its ids); then
+   extracted and autoencoded lines/s (CUDA-event medians of 10 after 3
+   warm-ups, TF32 on and off), ``trace_style``'s per-layer split and one
+   profiled window's idle share; then, under ``torch.profiler``, one CUDA
+   launch per epilogue call (9 in a generation forward);
+10. summary — one JSON line of kernels, then the device line last.
 
 Imports nothing of JAX.  Exits non-zero without a CUDA device.
 """
@@ -91,6 +104,11 @@ TRAIN_STEPS = 30
 # tensor's largest entry: the same forward, but cuDNN may pick other
 # backward algorithms (other summation orders, atomics) for the two runs
 TRAIN_GRAD_RTOL = 1e-3
+# styles of the same lines on the card and on the CPU (TF32 off), max abs
+# difference over max |style|: the recognizer's and the trunk's f32 convs
+# sum in other orders on the two devices
+STYLE_CPU_RTOL = 1e-3
+STYLE_CPU_LINES = 4                # 2 author pairs
 
 
 def block_shapes(dim=256, t=192):
@@ -149,18 +167,6 @@ def count_device_kernels(torch, name, fn):
     return sum(evt.count for evt in prof.key_averages()
                if evt.device_type == torch.autograd.DeviceType.CUDA
                and name in evt.key)
-
-
-def seed_conv_biases(torch, generator, seed):
-    """Set every styled block's conv1 and conv2 bias to seeded non-zero
-    values (the seeded init makes them 0), so a bias that the kernel path
-    drops or adds twice shows against the plain path."""
-    g = torch.Generator("cpu").manual_seed(seed)
-    with torch.no_grad():
-        for blk in generator.blocks:
-            for layer in (blk.conv1, blk.conv2):
-                layer.bias.copy_(0.05 * torch.randn(layer.bias.shape,
-                                                   generator=g))
 
 
 def ctc_inputs(torch, ctc, B, T, C, L, seed):
@@ -347,6 +353,140 @@ def time_ctc(torch, tt, F, ctc, T, L, card):
                 bound_ms=bounds[True][0], bound_by=bounds[True][1])
 
 
+class _Prefetched:
+    """A batcher whose batches come through a ``Prefetcher``."""
+
+    def __init__(self, batcher, prefetcher):
+        self.batcher, self.prefetcher = batcher, prefetcher
+
+    def batches(self, rng, shuffle=True):
+        return self.prefetcher(self.batcher.batches(rng, shuffle), depth=2)
+
+
+def style_main_path(torch, np, ge, ts, card):
+    """Phase 9: style extraction and autoencode on the paper model, its
+    checks, rates and per-layer split."""
+    from handwriting_line_generation_tpu_torch.charset import IAM_CHARSET
+    from handwriting_line_generation_tpu_torch.config import DataConfig
+    from handwriting_line_generation_tpu_torch.data.datasets import (
+        AuthorBatcher, LineRecord, Prefetcher,
+    )
+    from handwriting_line_generation_tpu_torch.inference.styles import \
+        StyleExtractor
+    from handwriting_line_generation_tpu_torch.ops.align import \
+        viterbi_align
+    model = ts.paper_model(DEVICE)
+    c = model.cfg
+    print(f"style config {ts.CONFIG.name}: hwr {c.hwr.kind}/{c.hwr.norm}, "
+          f"style {c.style.kind} dim {c.style.dim} char_dim "
+          f"{c.style.char_dim} window {c.style.window} K "
+          f"{c.style.char_capacity} style_dim {c.style.style_dim}, "
+          f"generator {c.generator.dim}, {c.compute_dtype}, fused epilogue; "
+          f"B={ts.B}, a={ts.A}, 64x{ts.tt.W}", flush=True)
+    data = ts.inputs(DEVICE)
+    image, label, lens, frames, width = data
+    B, A = ts.B, ts.A
+    noise = lambda: torch.Generator(DEVICE).manual_seed(0)
+    with torch.inference_mode():
+        style, pred = model.extract_style(image, A, frame_lengths=frames)
+        spaced = viterbi_align(pred, label, lens)
+        ge.block_epilogue.launches = 0
+        recon, aux = model.autoencode(image, label, lens, A,
+                                      frame_lengths=frames,
+                                      generator=noise())
+        launches = ge.block_epilogue.launches
+        model.generator.fused_epilogue = False
+        plain, _ = model.autoencode(image, label, lens, A,
+                                    frame_lengths=frames, generator=noise())
+        model.generator.fused_epilogue = True
+    pairs_equal = torch.equal(style[0::2], style[1::2])
+    print(f"extract_style: style {tuple(style.shape)}, finite "
+          f"{bool(torch.isfinite(style).all())}, rows of each pair equal "
+          f"{pairs_equal}, max |style| {style.abs().max().item():.4f}",
+          flush=True)
+    if tuple(style.shape) != (B, c.style.style_dim) or not pairs_equal \
+            or not bool(torch.isfinite(style).all()):
+        raise AssertionError("extract_style: bad style")
+    spaced_cpu = viterbi_align(pred.cpu(), label.cpu(), lens.cpu())
+    same = torch.equal(spaced.cpu(), spaced_cpu)
+    print(f"viterbi_align [{B}, {pred.shape[1]}] card vs CPU: bit-equal "
+          f"{same}", flush=True)
+    if not same or not torch.equal(aux["spaced_label"], spaced):
+        raise AssertionError("viterbi_align on the card differs from the "
+                             "CPU")
+    err = (recon - plain).abs().max().item()
+    print(f"autoencode: image {tuple(recon.shape)}, gen_epilogue launches "
+          f"{launches}; kernel vs plain epilogue path max abs diff "
+          f"{err:.3e} (bound {F32_MAX_ABS_BOUND})", flush=True)
+    if launches != 9:
+        raise AssertionError(f"expected 9 gen_epilogue launches per "
+                             f"autoencode forward, got {launches}")
+    if tuple(recon.shape) != (B, 64, ts.tt.W, 1) \
+            or not bool(torch.isfinite(recon).all()) \
+            or recon.abs().max().item() > 1.0:
+        raise AssertionError("autoencode: bad image")
+    if not err <= F32_MAX_ABS_BOUND:
+        raise AssertionError("autoencode through the kernel disagrees with "
+                             "the plain path")
+
+    # the same model on the CPU, on the first author pairs
+    n = STYLE_CPU_LINES
+    cpu_model = ts.paper_model("cpu")
+    with torch.inference_mode():
+        style_cpu, _ = cpu_model.extract_style(
+            image[:n].cpu(), A, frame_lengths=frames[:n].cpu())
+    del cpu_model
+    rel = ((style[:n].cpu() - style_cpu).abs().max()
+           / style_cpu.abs().max()).item()
+    print(f"style, card (B={B}) vs CPU (first {n} lines), TF32 off: max abs "
+          f"diff / max |style| {rel:.3e} (bound {STYLE_CPU_RTOL})",
+          flush=True)
+    if not rel <= STYLE_CPU_RTOL:
+        raise AssertionError("styles on the card differ from the CPU's")
+
+    # extract_dataset over in-memory records, behind a prefetcher
+    img_np, wid = image.cpu().numpy(), width.cpu().numpy()
+    lab_np, len_np = label.cpu().numpy(), lens.cpu().numpy()
+    records = [LineRecord(
+        author=f"a{i // A:02d}", gt=IAM_CHARSET.decode(lab_np[i, :len_np[i]]),
+        load=lambda a=img_np[i, :, :wid[i], 0]: a, rid=f"line{i:02d}")
+        for i in range(B)]
+    batcher = AuthorBatcher(records, IAM_CHARSET, B // A, A,
+                            DataConfig(width_buckets=(ts.tt.W,),
+                                       label_buckets=(ts.tt.L,)),
+                            with_fg=False)
+    bank = StyleExtractor(model, device=DEVICE).extract_dataset(
+        _Prefetched(batcher, Prefetcher))
+    want_ids = [f"line{i:02d};line{i + 1:02d}" for i in range(0, B, A)]
+    want_authors = [f"a{g:02d}" for g in range(B // A)]
+    d = np.abs(bank["styles"] - style[::A].cpu().numpy()).max()
+    scale = style.abs().max().item()
+    in_order = bank["ids"] == want_ids and bank["authors"] == want_authors
+    ok = (in_order and bank["styles"].shape == (B // A, c.style.style_dim)
+          and d <= STYLE_CPU_RTOL * scale)
+    print(f"extract_dataset: {len(bank['ids'])} rows, ids and authors in "
+          f"batcher order {in_order}, max abs diff to extract_style "
+          f"{d:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("extract_dataset: wrong rows")
+
+    # rates (TF32 on here; off in the report), then the per-layer split
+    # and one profiled window
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    on = ts.end_to_end(model, *data[:4])
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"extract_style {on['extract_ms']:.3f} ms: "
+          f"{on['extracted_lines_per_s']:.1f} extracted lines/s; autoencode "
+          f"{on['autoencode_ms']:.3f} ms: "
+          f"{on['autoencoded_lines_per_s']:.1f} autoencoded lines/s "
+          f"(B={B}, 64x{ts.tt.W}, f32, TF32 on) {card}", flush=True)
+    ts.report(model, data, card)
+    del model
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -361,7 +501,10 @@ def main():
     from handwriting_line_generation_tpu_torch.inference.generate import (
         GenerationSession,
     )
-    from handwriting_line_generation_tpu_torch.init import init_model
+    from handwriting_line_generation_tpu_torch import trace_style as ts
+    from handwriting_line_generation_tpu_torch.init import (
+        init_model, seed_conv_biases,
+    )
     from handwriting_line_generation_tpu_torch.ops import ctc
     from handwriting_line_generation_tpu_torch.ops import gen_epilogue as ge
     from handwriting_line_generation_tpu_torch.training.hwr_trainer import \
@@ -404,7 +547,7 @@ def main():
 
     # 4. main path: paper width, bf16, fused epilogue, 512 lines
     session, labels, lens, styles = bench.build(MAIN_BATCH)
-    seed_conv_biases(torch, session.model.generator, seed=1)
+    seed_conv_biases(session.model.generator, seed=1)
     texts = [bench.TEXT] * MAIN_BATCH
     styles_np = styles.cpu().numpy()
     ge.block_epilogue.launches = 0
@@ -435,7 +578,7 @@ def main():
     cfg32.compute_dtype = "float32"
     s32 = GenerationSession(init_model(cfg32, seed=0), session.charset,
                             device=DEVICE)
-    seed_conv_biases(torch, s32.model.generator, seed=1)
+    seed_conv_biases(s32.model.generator, seed=1)
     few = slice(0, 4)
     outs = []
     for fused in (True, False):
@@ -514,6 +657,10 @@ def main():
     ctc_times = [time_ctc(torch, tt, F, ctc, T, L, card)
                  for T, L in CTC_BUCKETS]
     main_t = ctc_times[CTC_MAIN]
+
+    # 9. main path: style extraction and autoencode on the paper model
+    style_main_path(torch, np, ge, ts, card)
+
     # one CUDA launch per epilogue call, seen by the profiler (last, so
     # that its hooks touch no timed phase), on a small paper-width session
     small, s_labels, s_lens, s_styles = bench.build(CHECK_BATCH)
@@ -526,7 +673,7 @@ def main():
         raise AssertionError(f"expected one CUDA launch per epilogue call, "
                              f"9 per forward; got {cuda_launches}")
 
-    # 9. summary
+    # 10. summary
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "gen_epilogue", "route": "cuda",

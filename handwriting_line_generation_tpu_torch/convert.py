@@ -1,9 +1,10 @@
 """flax param trees -> this package's ``state_dict``s.
 
-:func:`convert_params` covers the ``generator`` and ``spacer`` subtrees of
-``HWWithStyle``; the subtrees of modules not ported yet are skipped
-(:data:`SKIPPED_SUBTREES`) and any other key raises.
-:func:`convert_hwr_params` converts a ``CNNOnlyHWR`` tree.  Layout rules:
+:func:`convert_params` covers the ``generator``, ``spacer``, ``hwr`` and
+``style_extractor`` subtrees of ``HWWithStyle``; the discriminator's
+subtree is skipped (:data:`SKIPPED_SUBTREES`, its module is not ported
+yet) and any other key raises.  :func:`convert_hwr_params` converts a
+``CNNOnlyHWR`` tree.  Layout rules:
 
 * Dense ``[in, out]`` -> Linear ``[out, in]``.
 * 2-D conv HWIO -> OIHW; 1-D conv ``[k, in, out]`` -> ``[out, in, k]``.
@@ -15,6 +16,9 @@
   torch's ``conv_transpose2d`` flips: ``[in, out, kh, kw]``, spatially
   flipped.
 * NoiseInjection ``[1, 1, 1, C]`` -> ``[C]``; GroupNorm ``scale`` -> weight.
+* The style extractor's vmapped per-class extractors (and ``FillPred``)
+  carry a leading class axis: each 1-D conv kernel ``[N, k, in, out]`` ->
+  ``[N, out, in, k]``; dense kernels stay ``[N, in, out]``.
 
 bfloat16 leaves (``ml_dtypes``) convert exactly through float32.
 """
@@ -27,7 +31,7 @@ import numpy as np
 import torch
 
 # HWWithStyle subtrees whose modules this package does not port yet
-SKIPPED_SUBTREES = ("hwr", "style_extractor", "discriminator")
+SKIPPED_SUBTREES = ("discriminator",)
 
 
 def _tensor(a) -> torch.Tensor:
@@ -131,15 +135,73 @@ def _spacer(tree: Mapping, out, p: str) -> None:
             raise KeyError(f"{w}: unknown key")
 
 
+def _bank_conv(k):
+    return k.transpose(0, 3, 2, 1)
+
+
+def _bank(tree: Mapping, where: str, out, p: str, names: Dict[str, str]
+          ) -> None:
+    """A vmapped per-class module: ``names`` maps its flax children to the
+    port's bank layers."""
+    if set(tree) != set(names):
+        raise KeyError(f"{where}: expected keys {sorted(names)}, got "
+                       f"{sorted(tree)}")
+    for name, tname in names.items():
+        w, sub = f"{where}/{name}", tree[name]
+        if name.startswith("GroupNorm_"):
+            _gn(sub, w, out, f"{p}{tname}.")
+        else:
+            _layer(sub, w, out, f"{p}{tname}.",
+                   _bank_conv if name.startswith("Conv_") else _ident)
+
+
+_EXTRACTOR = {"Conv_0": "conv0", "GroupNorm_0": "norm0", "Conv_1": "conv1",
+              "Conv_2": "conv2", "GroupNorm_1": "norm1", "Dense_0": "dense0",
+              "Dense_1": "dense1"}
+
+
+def _style_extractor(tree: Mapping, out, p: str) -> None:
+    for name, sub in tree.items():
+        w = f"style_extractor/{name}"
+        if name == "StyleTrunk_0":
+            for bn, blk in sub.items():
+                bp = f"{p}trunk.blocks.{_index(bn, 'ConvBlock_')}."
+                for ln, leaf in blk.items():
+                    if ln == "Conv_0":
+                        _layer(leaf, f"{w}/{bn}/{ln}", out, bp + "conv.")
+                    elif ln == "GroupNorm_0":
+                        _gn(leaf, f"{w}/{bn}/{ln}", out, bp + "norm.")
+                    else:
+                        raise KeyError(f"{w}/{bn}/{ln}: unknown key")
+        elif name == "VmapCharExtractor_0":
+            _bank(sub, w, out, f"{p}bank.", _EXTRACTOR)
+        elif name == "VmapFillPred_0":
+            _bank(sub, w, out, f"{p}fill.",
+                  {"Dense_0": "dense0", "Dense_1": "dense1"})
+        elif name.startswith("Conv_"):
+            _layer(sub, w, out, f"{p}global_convs.{_index(name, 'Conv_')}.")
+        elif name == "GroupNorm_0":
+            _gn(sub, w, out, f"{p}global_norm.")
+        elif name in ("Dense_0", "Dense_1"):
+            _layer(sub, w, out, p + ("dense0." if name == "Dense_0"
+                                     else "head."), _dense)
+        else:
+            raise KeyError(f"{w}: unknown key")
+
+
 def convert_params(params: Mapping) -> Dict[str, torch.Tensor]:
     """flax ``params`` (nested dict of arrays) -> ``HWWithStyle`` state_dict
-    for its ``generator`` and ``spacer``."""
+    for its ``generator``, ``spacer``, ``hwr`` and ``style_extractor``."""
     out: Dict[str, torch.Tensor] = {}
     for name, sub in params.items():
         if name == "generator":
             _generator(sub, out, "generator.")
         elif name == "spacer":
             _spacer(sub, out, "spacer.")
+        elif name == "hwr":
+            _hwr(sub, out, "hwr.")
+        elif name == "style_extractor":
+            _style_extractor(sub, out, "style_extractor.")
         elif name not in SKIPPED_SUBTREES:
             raise KeyError(f"unknown subtree {name!r}")
     return out
@@ -172,11 +234,15 @@ def convert_hwr_params(params: Mapping) -> Dict[str, torch.Tensor]:
     if set(params) == {"params"}:
         params = params["params"]
     out: Dict[str, torch.Tensor] = {}
+    _hwr(params, out, "")
+    return out
+
+
+def _hwr(params: Mapping, out, p: str) -> None:
     n_conv = sum(k.startswith("Conv_") for k in params)
     head = {k: v for k, v in params.items() if k != "_ConvTrunk_0"}
     if "_ConvTrunk_0" not in params:
         raise KeyError("hwr: missing _ConvTrunk_0")
     _convs_and_norms(params["_ConvTrunk_0"], "hwr/_ConvTrunk_0", out,
-                     "trunk.")
-    _convs_and_norms(head, "hwr", out, "", last_conv=f"Conv_{n_conv - 1}")
-    return out
+                     p + "trunk.")
+    _convs_and_norms(head, "hwr", out, p, last_conv=f"Conv_{n_conv - 1}")

@@ -1,14 +1,20 @@
 """Seeded parameter init in the port, so the card runs without JAX.
 
-:func:`init_params` builds the ``generator`` and ``spacer`` subtrees of the
-flax ``HWWithStyle`` param tree, in flax's layout and with flax's
-distributions (it matches the distributions, not the bits):
+:func:`init_params` builds the ``generator``, ``spacer``, ``hwr`` and
+``style_extractor`` subtrees of the flax ``HWWithStyle`` param tree (those
+the config enables), in flax's layout and with flax's distributions (it
+matches the distributions, not the bits):
 
 * lecun_normal — a normal truncated at 2 sigma, std ``sqrt(1/fan_in) /
   0.8796`` — for ``nn.Conv``, ``nn.ConvTranspose`` and ``nn.Dense``;
 * N(0, 1) for the equal-LR layers (``EqualConv``, ``FusedUpsample``);
 * zero biases; AdaIN bias (gamma = 1, beta = 0); noise weight 0.01;
-  GroupNorm scale 1, bias 0; spacer mean (2, 0) and std (1.5, 0.5).
+  GroupNorm scale 1, bias 0; spacer mean (2, 0) and std (1.5, 0.5);
+* the vmapped per-class extractors draw each class's kernels on their own,
+  with the per-class fan-in.
+
+The generator and spacer draw first, so their weights do not depend on
+whether the other subtrees are built.
 
 :func:`init_model` loads it through :func:`convert.convert_params`.
 :func:`init_hwr_params` builds a ``CNNOnlyHWR`` tree the same way
@@ -109,7 +115,60 @@ def init_params(cfg: ModelConfig, seed: int = 0) -> Dict:
         sp["std"] = np.array([1.5, 0.5] if two else [1.0] * n_out,
                              np.float32)
         params["spacer"] = sp
+    if cfg.hwr.kind != "none":
+        params["hwr"] = _hwr_tree(rng, cfg.hwr, cfg.num_class)
+    if cfg.style.kind == "char":
+        params["style_extractor"] = _style_tree(rng, cfg)
     return params
+
+
+def _bank_layer(rng, n: int, shape) -> Dict[str, np.ndarray]:
+    """``n`` per-class layers, each drawn on its own."""
+    layers = [_layer(rng, shape) for _ in range(n)]
+    return {k: np.stack([l[k] for l in layers]) for k in ("kernel", "bias")}
+
+
+def _bank_norm(n: int, c: int) -> Dict[str, np.ndarray]:
+    return {k: np.stack([v] * n) for k, v in _norm(c).items()}
+
+
+def _style_tree(rng, cfg: ModelConfig) -> Dict:
+    """A ``CharStyleEncoder`` tree (``models/char_style.py``)."""
+    s = cfg.style
+    nc, d, cd = cfg.num_class, s.dim, s.char_dim
+    csd = s.style_dim if s.char_style_dim == 0 else s.char_style_dim
+    trunk, cin = {}, 1
+    specs = [(d, 5), (2 * d, 4), (2 * d, 3), (4 * d, 4), (4 * d, 3),
+             (4 * d, 4), (4 * d, 4)]
+    for i, (f, k) in enumerate(specs):
+        trunk[f"ConvBlock_{i}"] = {"Conv_0": _layer(rng, (k, k, cin, f))}
+        if i < len(specs) - 1 and s.norm in ("group", "batch"):
+            trunk[f"ConvBlock_{i}"]["GroupNorm_0"] = _norm(f)
+        cin = f
+    c4, n = 4 * d, nc - 1
+    tree = {"StyleTrunk_0": trunk, "VmapCharExtractor_0": {
+        "Conv_0": _bank_layer(rng, n, (3, c4, cd)),
+        "GroupNorm_0": _bank_norm(n, cd),
+        "Conv_1": _bank_layer(rng, n, (3, cd, c4)),
+        "Conv_2": _bank_layer(rng, n, (1 if s.window < 3 else 3, c4, 2 * cd)),
+        "GroupNorm_1": _bank_norm(n, 2 * cd),
+        "Dense_0": _bank_layer(rng, n, (2 * cd, 2 * cd)),
+        "Dense_1": _bank_layer(rng, n, (2 * cd, csd))}}
+    if s.char_style_dim > 0:
+        tree["VmapFillPred_0"] = {
+            "Dense_0": _bank_layer(rng, n, (csd, 2 * csd)),
+            "Dense_1": _bank_layer(rng, n, (2 * csd, csd * nc))}
+    tree["Conv_0"] = _layer(rng, (5, c4 + nc, c4))
+    tree["Conv_1"] = _layer(rng, (3, c4, c4))
+    tree["GroupNorm_0"] = _norm(c4)
+    tree["Conv_2"] = _layer(rng, (3, c4, c4))
+    tree["Dense_0"] = _layer(rng, (c4 + csd, c4))
+    if s.char_style_dim > 0:
+        head = s.style_dim + csd
+    else:
+        head = 2 * s.style_dim if s.vae else s.style_dim
+    tree["Dense_1"] = _layer(rng, (c4, head))
+    return tree
 
 
 def init_model(cfg: ModelConfig, seed: int = 0) -> HWWithStyle:
@@ -119,15 +178,30 @@ def init_model(cfg: ModelConfig, seed: int = 0) -> HWWithStyle:
     return model
 
 
+def seed_conv_biases(generator: torch.nn.Module, seed: int) -> None:
+    """Set every styled block's conv1 and conv2 bias to seeded N(0, 0.05²)
+    values (the init makes them 0), so that a bias the epilogue kernel
+    drops or adds twice shows against the plain path."""
+    g = torch.Generator("cpu").manual_seed(seed)
+    with torch.no_grad():
+        for blk in generator.blocks:
+            for layer in (blk.conv1, blk.conv2):
+                layer.bias.copy_(0.05 * torch.randn(layer.bias.shape,
+                                                   generator=g))
+
+
 def _norm(c: int) -> Dict[str, np.ndarray]:
     return {"scale": np.ones(c, np.float32), "bias": np.zeros(c, np.float32)}
 
 
 def init_hwr_params(hwr: HWRConfig, num_class: int, seed: int = 0) -> Dict:
     """Flax-layout ``{"params": ...}`` numpy tree of a ``CNNOnlyHWR``."""
+    return {"params": _hwr_tree(np.random.default_rng(seed), hwr, num_class)}
+
+
+def _hwr_tree(rng, hwr: HWRConfig, num_class: int) -> Dict:
     if hwr.kind != "cnn_only":
         raise NotImplementedError(f"init of hwr kind {hwr.kind!r}")
-    rng = np.random.default_rng(seed)
     normed = hwr.norm != "none"
     trunk, cin, k = {}, 1, 0
     for i, (f, n) in enumerate(zip(TRUNK_WIDTHS, TRUNK_NORMED)):
@@ -142,7 +216,7 @@ def init_hwr_params(hwr: HWRConfig, num_class: int, seed: int = 0) -> Dict:
         if normed:
             tree[f"GroupNorm_{i}"] = _norm(512)
     tree[f"Conv_{len(DILATIONS)}"] = _layer(rng, (3, 512, num_class))
-    return {"params": tree}
+    return tree
 
 
 def init_hwr(hwr: HWRConfig, num_class: int, seed: int = 0,

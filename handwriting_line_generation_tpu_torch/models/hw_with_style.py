@@ -1,10 +1,22 @@
-"""Composite handwriting-generation model: the generation flows.
+"""Composite handwriting-generation model.
 
-Counterpart of ``handwriting_line_generation_tpu/models/hw_with_style.py``.
-This slice ports the ``spacer`` and the ``generator`` and the flows that
-need only them: ``space``, ``generate`` and ``generate_spaced``, plus the
-style packing helpers.  The recognizer, style extractor and discriminator
-come with later slices (ROADMAP.md).
+Counterpart of ``handwriting_line_generation_tpu/models/hw_with_style.py``:
+the recognizer (``hwr``), the style extractor, the ``generator`` and the
+``spacer``, and the flows over them:
+
+* ``generate`` / ``generate_spaced`` — labels + style -> spacer counts ->
+  spaced one-hot -> generator image;
+* ``recognize`` — HWR log-probs;
+* ``extract_style`` — HWR log-probs (masked past each line's ink) and the
+  width-concatenated lines of each author -> one style per author, repeated
+  per line;
+* ``autoencode`` — extract the style, align the prediction to the label
+  (``viterbi_align``) and regenerate the line.
+
+Every submodule is built when the config asks for it (the recognizer
+unless ``hwr.kind`` is "none", the extractor when ``style.kind`` is
+"char"); a flow runs only the ones it needs, so generation never runs the
+recognizer.  The discriminator comes with a later slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -15,12 +27,30 @@ import torch
 from torch import nn
 
 from handwriting_line_generation_tpu_torch.config import ModelConfig
+from handwriting_line_generation_tpu_torch.models.char_style import \
+    CharStyleEncoder
 from handwriting_line_generation_tpu_torch.models.count_cnn import CountCNN
 from handwriting_line_generation_tpu_torch.models.generator import \
     SpacedGenerator
+from handwriting_line_generation_tpu_torch.models.hwr import build_hwr
+from handwriting_line_generation_tpu_torch.ops.align import viterbi_align
+from handwriting_line_generation_tpu_torch.ops.ctc import mask_frames_to_blank
 from handwriting_line_generation_tpu_torch.ops.spacing import (
     insert_spaces, onehot,
 )
+
+
+def collapse_author_batch(image: torch.Tensor, seq: torch.Tensor,
+                          a_batch_size: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Width-concatenate each author's ``a_batch_size`` lines: ``image
+    [B, H, W, C]`` -> ``[B/a, H, a*W, C]``, ``seq [B, T, C]`` ->
+    ``[B/a, a*T, C]``."""
+    B, H, W, C = image.shape
+    a = a_batch_size
+    img = image.reshape(B // a, a, H, W, C).transpose(1, 2)
+    T, Cs = seq.shape[1:]
+    return img.reshape(B // a, H, a * W, C), seq.reshape(B // a, a * T, Cs)
 
 
 class HWWithStyle(nn.Module):
@@ -29,6 +59,15 @@ class HWWithStyle(nn.Module):
         self.cfg = cfg
         c = cfg
         dt = c.torch_compute_dtype()
+        self.hwr = build_hwr(c.hwr.kind, c.num_class, c.hwr.norm,
+                             c.hwr.small, c.hwr.pad, dt)
+        s = c.style
+        self.style_extractor = CharStyleEncoder(
+            num_class=c.num_class, style_dim=s.style_dim,
+            char_style_dim=s.char_style_dim, dim=s.dim, char_dim=s.char_dim,
+            window=s.window, capacity=s.char_capacity, norm=s.norm,
+            act=s.activ, average_found_char_style=s.average_found_char_style,
+            vae=s.vae, dtype=dt) if s.kind == "char" else None
         self.generator = SpacedGenerator(
             num_class=c.num_class, style_dim=c.style.style_dim,
             dim=c.generator.dim, n_style_trans=c.generator.n_style_trans,
@@ -42,6 +81,64 @@ class HWWithStyle(nn.Module):
             in_ch=c.num_class + c.style.style_dim, hidden=c.spacer.dim,
             n_out=2 if c.spacer.count_duplicates else 1,
             dtype=dt) if c.spacer.enabled else None
+
+    def recognize(self, image: torch.Tensor) -> torch.Tensor:
+        """HWR log-probs ``[B, W/4, num_class]`` of ``[B, H, W, 1]``."""
+        return self.hwr(image)
+
+    def extract_style(self, image: torch.Tensor, a_batch_size: int = 1,
+                      pred: Optional[torch.Tensor] = None,
+                      frame_lengths: Optional[torch.Tensor] = None):
+        """Style of each group of ``a_batch_size`` consecutive lines (one
+        author's), repeated per line.  Returns ``(style, pred)``.
+
+        ``frame_lengths``: recognizer frames past each line's ink width
+        become blank, so pad frames neither spike nor feed style crops."""
+        if pred is None:
+            pred = self.hwr(image)
+        if frame_lengths is not None:
+            pred = mask_frames_to_blank(pred, frame_lengths)
+        img_c, pred_c = collapse_author_batch(image, pred, a_batch_size)
+        style = self.style_extractor(img_c, pred_c)
+        rep = lambda s: s.repeat_interleave(a_batch_size, dim=0)
+        if isinstance(style, tuple):
+            return tuple(rep(s) for s in style), pred
+        return rep(style), pred
+
+    def autoencode(self, image: torch.Tensor, labels: torch.Tensor,
+                   label_lengths: torch.Tensor, a_batch_size: int = 1,
+                   spaced_label: Optional[torch.Tensor] = None,
+                   frame_lengths: Optional[torch.Tensor] = None,
+                   noise: Optional[List[torch.Tensor]] = None,
+                   generator: Optional[torch.Generator] = None,
+                   vae_generator: Optional[torch.Generator] = None):
+        """Reconstruct each line in its own extracted style: extract, align
+        the prediction to the label (``viterbi_align`` unless
+        ``spaced_label`` is given), regenerate.  Returns ``(image [B, 64,
+        4T, 1], aux)`` with aux's ``style``, ``pred`` and ``spaced_label``.
+
+        ``noise`` / ``generator``: the generator's noise planes, as in
+        :meth:`generate_spaced`.  A VAE extractor regenerates from ``mu +
+        exp(log_sigma) * eps``, ``eps`` drawn from ``vae_generator``, when
+        one is given, and from ``mu`` otherwise; aux keeps ``(mu,
+        log_sigma)``."""
+        style, pred = self.extract_style(image, a_batch_size,
+                                         frame_lengths=frame_lengths)
+        if self.cfg.style.vae and vae_generator is not None:
+            mu, log_sigma = style
+            eps = torch.randn(mu.shape, generator=vae_generator,
+                              device=mu.device, dtype=mu.dtype)
+            gen_style = mu + torch.exp(log_sigma) * eps
+        else:
+            gen_style = _flat_style(style)
+        if spaced_label is None:
+            spaced_label = viterbi_align(pred, labels, label_lengths)
+        recon = self.generator(
+            onehot(spaced_label, self.cfg.num_class), gen_style, noise=noise,
+            spaced_style=self._spaced_style(spaced_label, style),
+            generator=generator)
+        return recon, {"style": style, "pred": pred,
+                       "spaced_label": spaced_label}
 
     def space(self, labels, label_lengths, style, *, spaced_len: int,
               generator: Optional[torch.Generator] = None, normals=None):

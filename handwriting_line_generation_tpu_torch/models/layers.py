@@ -1,4 +1,4 @@
-"""Building blocks of the generation and recognition slices, as
+"""Building blocks of the generation, recognition and style slices, as
 ``torch.nn`` modules.
 
 Counterpart of ``handwriting_line_generation_tpu/models/layers.py``.
@@ -11,7 +11,7 @@ the way flax's ``dtype=`` promotes them; statistics stay float32.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -114,6 +114,60 @@ def _same_pads(size: int, window: int, stride: int) -> Tuple[int, int]:
     out = -(-size // stride)
     total = max((out - 1) * stride + window - size, 0)
     return total // 2, total - total // 2
+
+
+def _pad2d(x: torch.Tensor, pad: Tuple[int, int, int, int],
+           mode: str) -> torch.Tensor:
+    """Pad NCHW by ``(top, bottom, left, right)`` with zeros ("zero"), the
+    edge value ("replicate") or a mirror without the edge ("reflect")."""
+    t, b, l, r = pad
+    if mode == "zero":
+        return F.pad(x, (l, r, t, b))
+    if mode in ("replicate", "reflect"):
+        return F.pad(x, (l, r, t, b), mode=mode)
+    raise ValueError(f"unknown pad mode {mode}")
+
+
+def activation(name: str) -> Optional[Callable]:
+    return {
+        "relu": F.relu,
+        "lrelu": lambda x: F.leaky_relu(x, 0.2),
+        "lrelu01": lambda x: F.leaky_relu(x, 0.1),
+        "tanh": torch.tanh,
+        "selu": F.selu,
+        "logsoftmax": lambda x: F.log_softmax(x, dim=1),
+        "none": None,
+    }[name]
+
+
+class ConvBlock(nn.Module):
+    """Pad, a VALID conv with stride, an optional norm and activation.
+
+    ``norm``: "group" or "batch" (mapped to group norm, as in the JAX
+    package), "instance" (no affine), or "none".  NCHW in and out."""
+
+    def __init__(self, in_ch: int, features: int,
+                 kernel: Tuple[int, int] = (3, 3),
+                 stride: Tuple[int, int] = (1, 1),
+                 padding: Tuple[int, int, int, int] = (0, 0, 0, 0),
+                 norm: str = "none", act: str = "relu",
+                 pad_type: str = "zero", dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.stride, self.padding, self.pad_type = stride, padding, pad_type
+        self.norm_kind, self.act, self.dtype = norm, activation(act), dtype
+        self.conv = nn.Conv2d(in_ch, features, kernel)
+        self.norm = GroupNorm(features, dtype) \
+            if norm in ("group", "batch") else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = _pad2d(x, self.padding, self.pad_type)
+        x = F.conv2d(x.to(self.dtype), self.conv.weight.to(self.dtype),
+                     self.conv.bias.to(self.dtype), stride=self.stride)
+        if self.norm is not None:
+            x = self.norm(x)
+        elif self.norm_kind == "instance":
+            x = instance_norm(x)
+        return x if self.act is None else self.act(x)
 
 
 def max_pool(x: torch.Tensor, window: Tuple[int, int],

@@ -26,6 +26,7 @@ import json
 import pathlib
 import time
 from collections import defaultdict
+from typing import Optional
 
 import numpy as np
 import torch
@@ -82,17 +83,18 @@ def conv_flop(h: int, w: int, num_class: int) -> float:
     return total + 2.0 * w * 512 * num_class * 3
 
 
-def batch(seed: int = 0, device: str = "cuda"):
-    """A fixed seeded batch ``[image, label, label_lengths, width]`` of B
-    u8 lines 64 x W: labels of 24-L characters, widths in [W/2, W], paper
-    240-255 with one dark glyph per label over each sample's width, the
-    rest padded with paper."""
+def batch(seed: int = 0, device: str = "cuda", n: Optional[int] = None):
+    """A fixed seeded batch ``[image, label, label_lengths, width]`` of
+    ``n`` (default B) u8 lines 64 x W: labels of 24-L characters, widths in
+    [W/2, W], paper 240-255 with one dark glyph per label over each
+    sample's width, the rest padded with paper."""
+    n = n or B
     rng = np.random.default_rng(seed)
-    width = rng.integers(W // 2, W + 1, B).astype(np.int32)
-    lens = rng.integers(24, L + 1, B).astype(np.int32)
-    label = np.zeros((B, L), np.int32)
-    image = rng.integers(240, 256, (B, 64, W, 1)).astype(np.uint8)
-    for b in range(B):
+    width = rng.integers(W // 2, W + 1, n).astype(np.int32)
+    lens = rng.integers(24, L + 1, n).astype(np.int32)
+    label = np.zeros((n, L), np.int32)
+    image = rng.integers(240, 256, (n, 64, W, 1)).astype(np.uint8)
+    for b in range(n):
         label[b, :lens[b]] = rng.integers(1, 80, lens[b])
         step = width[b] / lens[b]
         for j, c in enumerate(label[b, :lens[b]]):

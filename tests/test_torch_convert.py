@@ -114,52 +114,79 @@ def test_fused_upsample_flip():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
-def _cfgs(csd=0):
+def _cfgs(csd=0, hwr="cnn_only", vae=False, window=2):
     kw = dict(num_class=20, compute_dtype="float32")
-    j = JModelConfig(style=JStyleConfig(style_dim=24, char_style_dim=csd),
+    style = dict(style_dim=24, char_style_dim=csd, dim=8, char_dim=16,
+                 char_capacity=4, vae=vae, window=window)
+    j = JModelConfig(style=JStyleConfig(**style),
                      generator=JGeneratorConfig(dim=32),
                      discriminator=JDiscriminatorConfig(enabled=False),
                      spacer=JSpacerConfig(dim=32),
-                     hwr=JHWRConfig(kind="none"), **kw)
-    t = ModelConfig(style=StyleConfig(style_dim=24, char_style_dim=csd),
+                     hwr=JHWRConfig(kind=hwr), **kw)
+    t = ModelConfig(style=StyleConfig(**style),
                     generator=GeneratorConfig(dim=32),
                     discriminator=DiscriminatorConfig(enabled=False),
-                    spacer=SpacerConfig(dim=32), hwr=HWRConfig(kind="none"),
+                    spacer=SpacerConfig(dim=32), hwr=HWRConfig(kind=hwr),
                     **kw)
     return j, t
 
 
-@pytest.mark.parametrize("csd", [0, 3])
-def test_init_tree_matches_flax_and_loads(csd):
-    """The port's numpy init has flax's exact tree and shapes, and converts
-    into a strict load of the torch model."""
-    jcfg, tcfg = _cfgs(csd)
+@pytest.mark.parametrize("csd,vae,window", [(0, False, 2), (3, False, 2),
+                                            (0, True, 3)])
+def test_init_tree_matches_flax_and_loads(csd, vae, window):
+    """The port's numpy init has flax's exact tree and shapes — generator,
+    spacer, recognizer and style extractor, as ``init_all`` builds them —
+    and converts into a strict load of the torch model."""
+    jcfg, tcfg = _cfgs(csd, vae=vae, window=window)
     model = JHWWithStyle(jcfg)
     B, L = 2, 5
-    lab = jnp.ones((B, L), jnp.int32)
-    style = jnp.zeros((B, jcfg.packed_style_dim()))
     k = jax.random.PRNGKey(0)
     shapes = jax.eval_shape(
-        lambda: model.init({"params": k, "noise": k}, lab,
-                           jnp.full((B,), L), style, k, spaced_len=16,
-                           method="generate"))["params"]
+        lambda: model.init({"params": k, "noise": k},
+                           jnp.zeros((B, 64, 96, 1)),
+                           jnp.ones((B, L), jnp.int32), jnp.full((B,), L),
+                           1, 16, method="init_all"))["params"]
     want = jax.tree_util.tree_map(lambda a: a.shape, shapes)
     params = init_params(tcfg, seed=0)
+    assert set(params) == {"generator", "spacer", "hwr", "style_extractor"}
     assert jax.tree_util.tree_map(lambda a: a.shape, params) == want
     HWWithStyle(tcfg).load_state_dict(convert.convert_params(params))
 
 
 def test_convert_skips_unported_and_rejects_unknown():
+    """Only the discriminator's subtree is skipped: the recognizer's and
+    the extractor's are converted, and an unknown key in any of them
+    raises."""
     _, tcfg = _cfgs()
     params = init_params(tcfg, seed=0)
-    sd = convert.convert_params({**params, "hwr": {"x": np.zeros(1)},
-                                 "discriminator": {}})
+    sd = convert.convert_params({**params, "discriminator": {}})
     assert set(sd) == set(HWWithStyle(tcfg).state_dict())
+    assert any(k.startswith("hwr.") for k in sd)
+    assert any(k.startswith("style_extractor.bank.") for k in sd)
     with pytest.raises(KeyError):
         convert.convert_params({**params, "mystery": {}})
-    bad = {**params, "spacer": {**params["spacer"], "extra": np.zeros(1)}}
+    with pytest.raises(KeyError):
+        convert.convert_params({**params, "hwr": {"x": np.zeros(1)}})
+    for sub in ("spacer", "style_extractor"):
+        bad = {**params, sub: {**params[sub], "extra": np.zeros(1)}}
+        with pytest.raises(KeyError):
+            convert.convert_params(bad)
+    bank = params["style_extractor"]["VmapCharExtractor_0"]
+    bad = {**params, "style_extractor": {
+        **params["style_extractor"],
+        "VmapCharExtractor_0": {**bank, "Dense_2": bank["Dense_1"]}}}
     with pytest.raises(KeyError):
         convert.convert_params(bad)
+
+
+def test_generation_only_model_has_no_recognizer():
+    """``hwr.kind`` "none" builds no recognizer and no ``hwr`` subtree."""
+    _, tcfg = _cfgs(hwr="none")
+    params = init_params(tcfg, seed=0)
+    assert "hwr" not in params
+    model = HWWithStyle(tcfg)
+    assert model.hwr is None
+    model.load_state_dict(convert.convert_params(params))
 
 
 def test_bf16_leaves_convert_exactly():

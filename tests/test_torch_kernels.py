@@ -221,3 +221,74 @@ def test_ctc_rejects_bad_inputs(cuda):
                           labels, lens)
     with pytest.raises(ValueError):
         ctc.ctc_loss_cuda(lp, labels[:2], lens)
+
+
+# -- the style path on the card: plain PyTorch around the epilogue kernel --
+
+
+def _style_model():
+    from handwriting_line_generation_tpu_torch.config import (
+        DiscriminatorConfig, GeneratorConfig, HWRConfig, ModelConfig,
+        SpacerConfig, StyleConfig,
+    )
+    from handwriting_line_generation_tpu_torch.init import (
+        init_model, seed_conv_biases,
+    )
+    cfg = ModelConfig(
+        num_class=12, style=StyleConfig(style_dim=16, dim=8, char_dim=16,
+                                        char_capacity=4),
+        generator=GeneratorConfig(dim=32, fused_epilogue=True),
+        discriminator=DiscriminatorConfig(enabled=False),
+        spacer=SpacerConfig(dim=32), hwr=HWRConfig(kind="cnn_only",
+                                                   norm="group"))
+    model = init_model(cfg, seed=0)
+    seed_conv_biases(model.generator, seed=1)
+    return model.eval()
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_viterbi_align_card_equals_cpu(cuda, masked):
+    from handwriting_line_generation_tpu_torch.ops.align import viterbi_align
+    g = torch.Generator().manual_seed(3)
+    B, T, C, L = 8, 64, 12, 20
+    lp = torch.log_softmax(torch.randn((B, T, C), generator=g), -1)
+    lens = torch.randint(0, L + 1, (B,), generator=g)
+    labels = torch.randint(1, C, (B, L), generator=g, dtype=torch.int32)
+    labels = torch.where(torch.arange(L) < lens[:, None], labels, 0)
+    if masked:
+        lp = ctc.mask_frames_to_blank(
+            lp, torch.randint(1, T + 1, (B,), generator=g))
+    want = viterbi_align(lp, labels, lens)
+    got = viterbi_align(lp.to(cuda), labels.to(cuda), lens.to(cuda))
+    assert torch.equal(got.cpu(), want)
+
+
+def test_autoencode_card_matches_cpu(cuda):
+    """``autoencode`` (a = 2, frame lengths) on the card through the
+    epilogue kernel, 9 launches, against the CPU's plain path on the same
+    weights and noise planes."""
+    model = _style_model()
+    g = torch.Generator().manual_seed(4)
+    B, W = 4, 96
+    image = torch.rand((B, 64, W, 1), generator=g) * 2 - 1
+    labels = torch.randint(1, 12, (B, 8), generator=g)
+    lens = torch.tensor([8, 5, 3, 6])
+    frames = torch.tensor([24, 20, 17, 24])
+    T = W // 4
+    sizes = [(4, T), (8, T), (16, T), (32, 2 * T), (64, 4 * T)]
+    noise = [torch.randn((B, h, w), generator=g) for h, w in sizes
+             for _ in range(2)]
+    with torch.no_grad():
+        want, waux = model.autoencode(image, labels, lens, 2,
+                                      frame_lengths=frames, noise=noise)
+        model.to(cuda)
+        before = ge.block_epilogue.launches
+        got, aux = model.autoencode(
+            image.to(cuda), labels.to(cuda), lens.to(cuda), 2,
+            frame_lengths=frames.to(cuda), noise=[n.to(cuda) for n in noise])
+        torch.cuda.synchronize()
+    assert ge.block_epilogue.launches == before + 9
+    assert torch.equal(aux["spaced_label"].cpu(), waux["spaced_label"])
+    torch.testing.assert_close(aux["style"].cpu(), waux["style"],
+                               atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=0.0)
