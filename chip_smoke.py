@@ -47,18 +47,36 @@ Phases, in order; any failure exits non-zero:
    ``Prefetcher`` (one row per pair, in order, with its ids); then
    extracted and autoencoded lines/s (CUDA-event medians of 10 after 3
    warm-ups, TF32 on and off), ``trace_style``'s per-layer split and one
-   profiled window's idle share; then, under ``torch.profiler``, one CUDA
-   launch per epilogue call (9 in a generation forward);
-10. summary — one JSON line of kernels, then the device line last.
+   profiled window's idle share;
+10. main path, autoencoder pretraining — ``AutoTrainer.train`` on
+    ``configs/iam_auto_2tight.json`` (``Encoder2(32)`` + the no-skip
+    ``PyramidDecoder(32)`` + the ``EHWR`` head over 80 classes, Adam, f32, TF32 off, seeded
+    weights) on seeded u8 lines of 64 x 1024 at B = 28: 30 train steps and a
+    validation over 2 batches, finite and falling losses, 32 CTC launches
+    at T = W/8 = 128 frames; ``checkpoint-latest`` resumed by a fresh
+    trainer, whose next step equals the first trainer's; one step's loss
+    and gradients through the kernel against the plain CTC; the CTC kernel
+    against its plain version at the autoencoder's (T, L) = (24, 24),
+    (128, 72), (168, 96), B = 28; then ``trace_auto``'s per-layer split,
+    ms per step and autoencoder-trained lines/s (CUDA-event medians, TF32
+    off and on), one profiled window's idle share, and the CTC kernel's
+    times at (28, 128, 72);
+11. under ``torch.profiler``, one CUDA launch per epilogue call (9 in a
+    generation forward);
+12. summary — one JSON line of kernels (the CTC kernel once for each
+    path that runs it, with that path's launches and main-bucket times),
+    then the device line last.
 
 Imports nothing of JAX.  Exits non-zero without a CUDA device.
 """
 
+import itertools
 import json
 import math
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM memory rate
@@ -109,6 +127,17 @@ TRAIN_GRAD_RTOL = 1e-3
 # sum in other orders on the two devices
 STYLE_CPU_RTOL = 1e-3
 STYLE_CPU_LINES = 4                # 2 author pairs
+AUTO_CONFIG = REPO / "configs" / "iam_auto_2tight.json"
+AUTO_STEPS = 30
+AUTO_VAL_BATCHES = 2
+# the autoencoder's CTC runs at T = W/8: the 192-, 1024- and 1344-px
+# buckets with their 24/72/96 labels (at 192 px many samples cannot align)
+AUTO_CTC_BUCKETS = [(24, 24), (128, 72), (168, 96)]
+AUTO_CTC_MAIN = 1
+# a resumed trainer's next step against the uninterrupted one's, relative:
+# the same state and inputs (cuDNN's forward algorithms are deterministic,
+# so they should be bit-equal)
+RESUME_RTOL = 1e-6
 
 
 def block_shapes(dim=256, t=192):
@@ -211,11 +240,11 @@ def ctc_both(torch, ctc, x, labels, lens):
     return out
 
 
-def check_ctc(torch, ctc, T, L, seed):
+def check_ctc(torch, ctc, T, L, seed, batch=CTC_BATCH):
     """Kernel against plain at one bucket; raises past the tolerances, on
     a non-zero impossible sample, or on grads that differ between two
     runs.  Returns the max abs error (NLL or grad)."""
-    x, labels, lens = ctc_inputs(torch, ctc, CTC_BATCH, T, CTC_CLASSES, L,
+    x, labels, lens = ctc_inputs(torch, ctc, batch, T, CTC_CLASSES, L,
                                  seed)
     (nll_k, g_k), (nll_p, g_p) = ctc_both(torch, ctc, x, labels, lens)
     torch.cuda.synchronize()
@@ -228,7 +257,7 @@ def check_ctc(torch, ctc, T, L, seed):
     imp = nll_k[2].item() == 0.0 and bool((g_k[2] == 0).all())
     _, g_again = ctc_both(torch, ctc, x, labels, lens)[0]
     same = torch.equal(g_k, g_again)
-    print(f"ctc B={CTC_BATCH} T={T} L={L} C={CTC_CLASSES}: nll max_abs_err "
+    print(f"ctc B={batch} T={T} L={L} C={CTC_CLASSES}: nll max_abs_err "
           f"{e_nll:.3e} (rtol {CTC_NLL_TOL['rtol']}, atol "
           f"{CTC_NLL_TOL['atol']}), grad max_abs_err {e_grad:.3e}, max "
           f"rel {r_grad:.3e} (rtol {CTC_GRAD_TOL['rtol']}, atol "
@@ -310,13 +339,13 @@ def time_train(tt, tr, batch, iters=10, warmup=3):
     return tt.event_ms(lambda: tr.train_step(*batch), iters, warmup)
 
 
-def time_ctc(torch, tt, F, ctc, T, L, card):
+def time_ctc(torch, tt, F, ctc, T, L, card, batch=CTC_BATCH):
     """Kernel (forward + backward, forward only), plain and F.ctc_loss
     times at one bucket, and the bound.  Returns a dict of ms."""
-    x, labels, lens = ctc_inputs(torch, ctc, CTC_BATCH, T, CTC_CLASSES, L,
+    x, labels, lens = ctc_inputs(torch, ctc, batch, T, CTC_CLASSES, L,
                                  seed=T)
     m = x.detach().contiguous()
-    B, C = CTC_BATCH, CTC_CLASSES
+    B, C = batch, CTC_CLASSES
     t_k = tt.event_ms(lambda: ctc._launch(m, labels, lens, True), 50)
     t_f = tt.event_ms(lambda: ctc._launch(m, labels, lens, False), 50)
     tfull = torch.full_like(lens, T)
@@ -487,6 +516,136 @@ def style_main_path(torch, np, ge, ts, card):
     torch.cuda.empty_cache()
 
 
+def auto_batch(ta, seed):
+    """A batch dict of ``trace_auto.B`` seeded u8 lines on the card, with
+    the text of each label."""
+    from handwriting_line_generation_tpu_torch.charset import IAM_CHARSET
+    image, label, lens, width = ta.inputs(DEVICE, seed)
+    lab, n = label.cpu().numpy(), lens.cpu().numpy()
+    return dict(image=image, label=label, label_lengths=lens, width=width,
+                gt=[IAM_CHARSET.decode(lab[b, :n[b]]) for b in range(len(n))])
+
+
+def _args(batch):
+    return [batch[k] for k in ("image", "label", "label_lengths", "width")]
+
+
+def auto_main_path(torch, ctc, ta, load_config, run_dir):
+    """30 steps of ``AutoTrainer.train`` with a validation over 2 batches
+    at the end, checkpoints in ``run_dir``; then a fresh trainer resumes
+    from ``checkpoint-latest`` and its next step is held against the first
+    trainer's.  Returns (CTC launches, trainer, batch)."""
+    from handwriting_line_generation_tpu_torch.training.auto_trainer import \
+        AutoTrainer
+    cfg = load_config(str(AUTO_CONFIG))
+    ae = cfg.autoencoder
+    print(f"autoencoder config {AUTO_CONFIG.name}: kind {ae.kind}, "
+          f"{ae.hwr_classes} classes, lr {cfg.optimizer.lr}, betas "
+          f"{cfg.optimizer.betas}, loss weights {cfg.trainer.loss_weights}, "
+          f"{cfg.model.compute_dtype}; B={ta.B}, 64x{ta.tt.W}", flush=True)
+    cfg.trainer.save_dir = run_dir
+    cfg.trainer.log_step = 1
+    cfg.trainer.val_step = cfg.trainer.save_step_minor = AUTO_STEPS
+    tr = AutoTrainer(cfg, device=DEVICE)
+    tr.init_state(seed=0)
+    batch = auto_batch(ta, seed=0)
+    valid = [auto_batch(ta, seed=s) for s in (1, 2)]
+    entries = []
+    ctc.ctc_loss_cuda.launches = 0
+    tr.train(itertools.repeat(batch, AUTO_STEPS), iterations=AUTO_STEPS,
+             valid=valid, val_batches=AUTO_VAL_BATCHES,
+             on_log=entries.append)
+    launches = ctc.ctc_loss_cuda.launches
+    steps = [e for e in entries if "loss" in e]
+    val = [e for e in entries if "val_CER" in e]
+    losses = [e["loss"] for e in steps]
+    print("autoencoder train losses " + " ".join(f"{v:.4f}" for v in losses)
+          + f"; last autoLoss {steps[-1]['autoLoss']:.4f}, recogLoss "
+          f"{steps[-1]['recogLoss']:.4f}; validation {val}; ctc launches "
+          f"{launches}", flush=True)
+    if len(steps) != AUTO_STEPS or len(val) != 1:
+        raise AssertionError(f"{len(steps)} steps and {len(val)} "
+                             f"validations logged")
+    if not all(math.isfinite(e[k]) for e in steps
+               for k in ("loss", "autoLoss", "recogLoss")) \
+            or not all(math.isfinite(v) for v in val[0].values()):
+        raise AssertionError("an autoencoder loss is not finite")
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    if not last < first:
+        raise AssertionError(f"loss did not fall: first five {first:.4f}, "
+                             f"last five {last:.4f}")
+    if launches != AUTO_STEPS + AUTO_VAL_BATCHES:
+        raise AssertionError(f"expected {AUTO_STEPS + AUTO_VAL_BATCHES} ctc "
+                             f"launches, got {launches}")
+    print(f"main path autoencoder: mean loss of the first five steps "
+          f"{first:.4f}, of the last five {last:.4f}", flush=True)
+
+    # resume: the uninterrupted trainer's step 31 against a fresh trainer
+    # that reads checkpoint-latest (step 30) and takes step 31
+    want = {k: float(v) for k, v in tr.train_step(*_args(batch)).items()
+            if k != "logp"}
+    again = AutoTrainer(cfg, device=DEVICE)
+    again.init_state(seed=1)                  # the checkpoint decides
+    got = []
+    again.train([batch], iterations=AUTO_STEPS + 1, on_log=got.append,
+                resume=True)
+    rel = max(abs(got[-1][k] - v) / abs(v) for k, v in want.items())
+    same = all(got[-1][k] == v for k, v in want.items())
+    ok = again.step == AUTO_STEPS + 1 and rel <= RESUME_RTOL
+    print(f"resume from checkpoint-latest: step {again.step}, next step "
+          f"{got[-1]['loss']:.6f} vs uninterrupted {want['loss']:.6f} "
+          f"(max rel diff {rel:.2e}, bound {RESUME_RTOL}; bit-equal {same}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the resumed trainer's step differs")
+    del again
+    return launches, tr, batch
+
+
+def check_auto_grads(torch, ctc, ta, batch):
+    """One step's loss and gradients through the kernel and through the
+    plain CTC, from the same weights, batch and dropout masks."""
+    tr = ta.trainer(DEVICE)
+    params = list(tr.model.parameters())
+    loss_k, aux = tr.loss(*_args(batch))
+    g_k = torch.autograd.grad(loss_k, params, retain_graph=True)
+    logp = aux["logp"]
+    B, T, _ = logp.shape
+    loss_p = tr.w_auto * aux["autoLoss"] + tr.w_recog * ctc.ctc_loss(
+        logp, batch["label"], torch.full((B,), T, device=DEVICE),
+        batch["label_lengths"])
+    g_p = torch.autograd.grad(loss_p, params)
+    rel_loss = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    worst = max(((a - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(g_k, g_p))
+    ok = rel_loss <= 1e-5 and worst <= TRAIN_GRAD_RTOL
+    print(f"autoencoder step, kernel vs plain CTC (T={T}): loss "
+          f"{loss_k.item():.6f} vs {loss_p.item():.6f} (rel {rel_loss:.2e}, "
+          f"bound 1e-5); worst parameter gradient max abs diff / max abs "
+          f"{worst:.2e} (bound {TRAIN_GRAD_RTOL}) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError("autoencoder step through the kernel disagrees "
+                             "with the plain CTC")
+
+
+def auto_phase(torch, tt, F, ctc, ta, load_config, card):
+    """Phase 10.  Returns (CTC launches, max CTC error, the CTC times at
+    the main bucket)."""
+    with tempfile.TemporaryDirectory() as run_dir:
+        launches, tr, batch = auto_main_path(torch, ctc, ta, load_config,
+                                             run_dir)
+    check_auto_grads(torch, ctc, ta, batch)
+    err = max(check_ctc(torch, ctc, T, L, seed=T + L, batch=ta.B)
+              for T, L in AUTO_CTC_BUCKETS)
+    ta.report(tr, _args(batch), card)
+    T, L = AUTO_CTC_BUCKETS[AUTO_CTC_MAIN]
+    times = time_ctc(torch, tt, F, ctc, T, L, card, batch=ta.B)
+    del tr
+    torch.cuda.empty_cache()
+    return launches, err, times
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -501,6 +660,7 @@ def main():
     from handwriting_line_generation_tpu_torch.inference.generate import (
         GenerationSession,
     )
+    from handwriting_line_generation_tpu_torch import trace_auto as ta
     from handwriting_line_generation_tpu_torch import trace_style as ts
     from handwriting_line_generation_tpu_torch.init import (
         init_model, seed_conv_biases,
@@ -661,7 +821,14 @@ def main():
     # 9. main path: style extraction and autoencode on the paper model
     style_main_path(torch, np, ge, ts, card)
 
-    # one CUDA launch per epilogue call, seen by the profiler (last, so
+    # 10. main path: autoencoder pretraining through the CTC kernel at
+    # T = W/8 (leaves TF32 off)
+    auto_launches, auto_err, auto_t = auto_phase(torch, tt, F, ctc, ta,
+                                                 load_config, card)
+    print(f"ctc launches on the main paths: HWR training {ctc_launches}, "
+          f"autoencoder pretraining {auto_launches}", flush=True)
+
+    # 11. one CUDA launch per epilogue call, seen by the profiler (last, so
     # that its hooks touch no timed phase), on a small paper-width session
     small, s_labels, s_lens, s_styles = bench.build(CHECK_BATCH)
     cuda_launches = count_device_kernels(
@@ -673,22 +840,29 @@ def main():
         raise AssertionError(f"expected one CUDA launch per epilogue call, "
                              f"9 per forward; got {cuda_launches}")
 
-    # 10. summary
+    # 12. summary
     print(smi)
+    # the CTC kernel once per path that runs it: each entry's launches come
+    # from that path's run, its times from that path's main bucket
+    ctc_paths = [
+        ("HWR training", (CTC_BATCH,) + CTC_BUCKETS[CTC_MAIN], ctc_launches,
+         ctc_err, main_t),
+        ("autoencoder pretraining", (ta.B,) + AUTO_CTC_BUCKETS[AUTO_CTC_MAIN],
+         auto_launches, auto_err, auto_t)]
     print(json.dumps({"kernels": [{
         "name": "gen_epilogue", "route": "cuda",
         "source": "handwriting_line_generation_tpu_torch/csrc/gen_epilogue.cu",
         "replaces": "handwriting_line_generation_tpu/ops/gen_epilogue.py:39",
         "launches": launches, "max_abs_err": max_err, "ms": k_ms,
         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": bound_by,
-        "library_ms": None}, {
-        "name": "ctc", "route": "cuda",
+        "library_ms": None}] + [{
+        "name": f"ctc ({path}, B={b} T={t} L={lab})", "route": "cuda",
         "source": "handwriting_line_generation_tpu_torch/csrc/ctc.cu",
         "replaces": "handwriting_line_generation_tpu/ops/ctc_pallas.py:60",
-        "launches": ctc_launches, "max_abs_err": ctc_err,
-        "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
-        "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
-        "library_ms": main_t["library_ms"]}]}))
+        "launches": n, "max_abs_err": err, "ms": t_["ms"],
+        "plain_ms": t_["plain_ms"], "bound_ms": t_["bound_ms"],
+        "bound_by": t_["bound_by"], "library_ms": t_["library_ms"]}
+        for path, (b, t, lab), n, err, t_ in ctc_paths]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -199,7 +199,9 @@ class TrainerConfig:
 
 @dataclass
 class AutoencoderConfig:
-    kind: str = "2tight"            # 2tight | 2tighter | 2 | no_skip
+    # 2tight (paper) | 2tighter | 2 | 3 | skip | small | no_skip | space |
+    # smallSpace | 32 (models.autoencoder.AE_KINDS)
+    kind: str = "2tight"
     hwr_classes: int = 80           # CTC aux head classes; 0 disables
 
 

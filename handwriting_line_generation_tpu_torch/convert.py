@@ -4,7 +4,8 @@
 ``style_extractor`` subtrees of ``HWWithStyle``; the discriminator's
 subtree is skipped (:data:`SKIPPED_SUBTREES`, its module is not ported
 yet) and any other key raises.  :func:`convert_hwr_params` converts a
-``CNNOnlyHWR`` tree.  Layout rules:
+``CNNOnlyHWR`` tree and :func:`convert_autoencoder_params` an
+``Autoencoder`` tree.  Layout rules:
 
 * Dense ``[in, out]`` -> Linear ``[out, in]``.
 * 2-D conv HWIO -> OIHW; 1-D conv ``[k, in, out]`` -> ``[out, in, k]``.
@@ -14,7 +15,8 @@ yet) and any other key raises.  :func:`convert_hwr_params` converts a
   ``conv2d`` (``StyledConvBlock``).
 * ``FusedUpsample`` runs ``lax.conv_transpose`` (stride 2) unflipped, where
   torch's ``conv_transpose2d`` flips: ``[in, out, kh, kw]``, spatially
-  flipped.
+  flipped.  So do the autoencoder's decoders' ``nn.ConvTranspose`` layers
+  (strides 1 and 2), run by ``models.layers.conv_transpose``.
 * NoiseInjection ``[1, 1, 1, C]`` -> ``[C]``; GroupNorm ``scale`` -> weight.
 * The style extractor's vmapped per-class extractors (and ``FillPred``)
   carry a leading class axis: each 1-D conv kernel ``[N, k, in, out]`` ->
@@ -235,6 +237,37 @@ def convert_hwr_params(params: Mapping) -> Dict[str, torch.Tensor]:
         params = params["params"]
     out: Dict[str, torch.Tensor] = {}
     _hwr(params, out, "")
+    return out
+
+
+_AE_LAYERS = {"Conv_": ("convs", _conv), "ConvTranspose_":
+              ("convts", _flipped_transpose)}
+
+
+def convert_autoencoder_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """flax ``Autoencoder`` params (with or without the outer ``"params"``
+    key) -> ``models.autoencoder.Autoencoder`` state_dict.  Each of the
+    ``encoder``, ``decoder`` and ``hwr`` subtrees maps ``Conv_<i>`` (2-D or
+    dilated 1-D) -> ``convs.<i>``, ``ConvTranspose_<i>`` -> ``convts.<i>``
+    (flipped, ``[in, out, kh, kw]``) and ``GroupNorm_<i>`` -> ``norms.<i>``;
+    any other key raises."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    for name, sub in params.items():
+        if name not in ("encoder", "decoder", "hwr"):
+            raise KeyError(f"unknown subtree {name!r}")
+        for leaf, tree in sub.items():
+            w = f"{name}/{leaf}"
+            if leaf.startswith("GroupNorm_"):
+                _gn(tree, w, out,
+                    f"{name}.norms.{_index(leaf, 'GroupNorm_')}.")
+                continue
+            stem = leaf.rsplit("_", 1)[0] + "_"
+            if stem not in _AE_LAYERS:
+                raise KeyError(f"{w}: unknown key")
+            tname, fn = _AE_LAYERS[stem]
+            _layer(tree, w, out, f"{name}.{tname}.{_index(leaf, stem)}.", fn)
     return out
 
 

@@ -19,7 +19,9 @@ whether the other subtrees are built.
 :func:`init_model` loads it through :func:`convert.convert_params`.
 :func:`init_hwr_params` builds a ``CNNOnlyHWR`` tree the same way
 (lecun_normal conv kernels, zero biases, GroupNorm 1/0) and
-:func:`init_hwr` loads it through :func:`convert.convert_hwr_params`.
+:func:`init_hwr` loads it through :func:`convert.convert_hwr_params`;
+:func:`init_autoencoder_params` and :func:`init_autoencoder` do the same
+for an ``Autoencoder``.
 """
 
 from __future__ import annotations
@@ -31,8 +33,10 @@ import torch
 
 from handwriting_line_generation_tpu_torch.config import HWRConfig, ModelConfig
 from handwriting_line_generation_tpu_torch.convert import (
-    convert_hwr_params, convert_params,
+    convert_autoencoder_params, convert_hwr_params, convert_params,
 )
+from handwriting_line_generation_tpu_torch.models.autoencoder import \
+    Autoencoder
 from handwriting_line_generation_tpu_torch.models.hw_with_style import \
     HWWithStyle
 from handwriting_line_generation_tpu_torch.models.hwr import (
@@ -226,4 +230,48 @@ def init_hwr(hwr: HWRConfig, num_class: int, seed: int = 0,
                       dtype)
     model.load_state_dict(convert_hwr_params(
         init_hwr_params(hwr, num_class, seed)))
+    return model
+
+
+def _flax_kernel_shape(layer: torch.nn.Module) -> tuple:
+    """flax kernel shape of a Conv1d/Conv2d (``[*k, in, out]``) or a
+    ConvTranspose2d (``[kh, kw, in, out]``)."""
+    w = layer.weight.shape
+    if isinstance(layer, torch.nn.ConvTranspose2d):
+        return tuple(w[2:]) + (w[0], w[1])
+    return tuple(w[2:]) + (w[1], w[0])
+
+
+def init_autoencoder_params(kind: str, hwr_classes: int,
+                            seed: int = 0) -> Dict:
+    """Flax-layout ``{"params": ...}`` numpy tree of an ``Autoencoder``:
+    lecun_normal kernels (``nn.Conv``, ``nn.ConvTranspose``), zero biases,
+    GroupNorm 1/0.  The shapes are read off the port's module of that kind
+    (the tests hold them against flax's own init)."""
+    rng = np.random.default_rng(seed)
+    with torch.device("meta"):                 # shapes only, no storage
+        model = Autoencoder(kind, hwr_classes)
+    tree = {}
+    for name in ("encoder", "decoder", "hwr"):
+        sub = getattr(model, name)
+        if sub is None:
+            continue
+        tree[name] = {}
+        for stem, attr in (("Conv_", "convs"), ("ConvTranspose_", "convts")):
+            for i, layer in enumerate(getattr(sub, attr, ())):
+                tree[name][f"{stem}{i}"] = _layer(rng,
+                                                  _flax_kernel_shape(layer))
+        for i, norm in enumerate(sub.norms):
+            tree[name][f"GroupNorm_{i}"] = _norm(norm.weight.numel())
+    return {"params": tree}
+
+
+def init_autoencoder(kind: str = "2tight", hwr_classes: int = 0,
+                     seed: int = 0, dtype: torch.dtype = torch.float32
+                     ) -> Autoencoder:
+    """``Autoencoder`` on the CPU with seeded flax-distributed weights."""
+    with torch.device("meta"):        # skip torch's own init: every
+        model = Autoencoder(kind, hwr_classes, dtype)    # weight is loaded
+    model.load_state_dict(convert_autoencoder_params(
+        init_autoencoder_params(kind, hwr_classes, seed)), assign=True)
     return model

@@ -170,6 +170,54 @@ class ConvBlock(nn.Module):
         return x if self.act is None else self.act(x)
 
 
+def conv_transpose(x: torch.Tensor, layer: nn.ConvTranspose2d,
+                   dtype: torch.dtype,
+                   padding: Tuple[Tuple[int, int], Tuple[int, int]]
+                   ) -> torch.Tensor:
+    """flax ``nn.ConvTranspose(dtype=..., padding=...)`` through a
+    ``ConvTranspose2d``'s params (stride from the layer).
+
+    flax's ``transpose_kernel=False`` runs ``lax.conv_transpose``: the
+    stride-dilated input, padded by ``padding``, correlated with the kernel
+    unflipped.  torch's ``conv_transpose2d`` flips its kernel, so ``weight``
+    is stored ``[in, out, kh, kw]`` already flipped (``convert.py``), and a
+    flax pad ``p`` of a ``k``-tap axis is torch's padding ``k - 1 - p``.
+    Both sides of each axis must pad alike."""
+    pads = []
+    for (lo, hi), k in zip(padding, layer.kernel_size):
+        if lo != hi or lo > k - 1:
+            raise ValueError(f"flax padding {padding} has no torch "
+                             f"conv_transpose2d equivalent for kernel "
+                             f"{layer.kernel_size}")
+        pads.append(k - 1 - lo)
+    return F.conv_transpose2d(x.to(dtype), layer.weight.to(dtype),
+                              layer.bias.to(dtype), stride=layer.stride,
+                              padding=tuple(pads))
+
+
+def avg_pool(x: torch.Tensor, window: Tuple[int, int]) -> torch.Tensor:
+    """flax ``nn.avg_pool`` on NCHW: ``VALID``, stride = window."""
+    return F.avg_pool2d(x, window)
+
+
+def channel_dropout(x: torch.Tensor, rate: float,
+                    generator: Optional[torch.Generator],
+                    per_channel: bool) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each entry with probability ``1 - rate``
+    and scale it by ``1 / (1 - rate)``; a no-op when ``generator`` is None
+    (deterministic) or ``rate`` is 0.  ``per_channel``: one draw per
+    (sample, channel), broadcast over the rest, as ``broadcast_dims=(1, 2)``
+    on NHWC does; else one per entry.  The mask is drawn from
+    ``generator``, so a seeded generator repeats it."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    shape = x.shape[:2] + (1,) * (x.ndim - 2) if per_channel else x.shape
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
 def max_pool(x: torch.Tensor, window: Tuple[int, int],
              stride: Optional[Tuple[int, int]] = None,
              padding: str = "VALID") -> torch.Tensor:

@@ -9,15 +9,17 @@ The trainer takes any iterator of batch dicts (``image`` u8 ``[B, H, W, 1]``
 or normalized float, ``label`` ``[B, L]``, ``label_lengths`` ``[B]``,
 ``width`` ``[B]``, ``gt`` strings).  The JAX trainer splits ``state.rng``
 each step; this one draws its augmentation from one device
-``torch.Generator`` seeded in :meth:`HWRTrainer.init_state`.  The data
-pipeline (``make_batcher``, prefetching), checkpoints, SIGINT handling,
-in-loop validation and multi-process training are not ported yet.
+``torch.Generator`` seeded in :meth:`HWRTrainer.init_state`.
+:meth:`HWRTrainer.train` runs the loop of ``training/loop.py``: in-loop
+validation, checkpoints, resume and SIGINT.  The data pipeline
+(``make_batcher``, prefetching) and multi-process training are not ported
+yet.
 """
 
 from __future__ import annotations
 
 import itertools
-from typing import Callable, Dict, Iterable, Mapping, Optional, Tuple, Union
+from typing import Dict, Iterable, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -30,21 +32,22 @@ from handwriting_line_generation_tpu_torch.convert import convert_hwr_params
 from handwriting_line_generation_tpu_torch.device import resolve_device
 from handwriting_line_generation_tpu_torch.init import init_hwr
 from handwriting_line_generation_tpu_torch.ops.augment import (
-    apply_augmentation, dequantize_image, quantize_image_u8,
+    apply_augmentation, dequantize_image,
 )
 from handwriting_line_generation_tpu_torch.ops.ctc import (
     ctc_loss_fast, mask_frames_to_blank,
 )
+from handwriting_line_generation_tpu_torch.training.loop import \
+    CheckpointedTrainer
 from handwriting_line_generation_tpu_torch.training.train_state import \
     make_optimizer
 from handwriting_line_generation_tpu_torch.utils.error_rates import \
     batch_cer_wer
-from handwriting_line_generation_tpu_torch.utils.train_log import TrainLog
 
 ArrayLike = Union[np.ndarray, torch.Tensor]
 
 
-class HWRTrainer:
+class HWRTrainer(CheckpointedTrainer):
     """``HWRTrainer(cfg, device=None)``: ``cuda`` unless ``device`` names
     another; call :meth:`init_state` before stepping."""
 
@@ -144,41 +147,14 @@ class HWRTrainer:
             n += 1
         return {k: v / max(n, 1) for k, v in totals.items()}
 
-    def train(self, batches: Iterable[Dict],
-              iterations: Optional[int] = None,
-              log_every: Optional[int] = None,
-              on_log: Optional[Callable[[Dict], None]] = None) -> TrainLog:
-        """Up to ``iterations`` steps over ``batches`` (stops early when
-        they run out), logging the loss every step and CER/WER of the
-        step's batch every ``log_every``."""
-        c = self.cfg
-        if self.model is None:
-            self.init_state(c.trainer.seed)
-        iterations = iterations or c.trainer.iterations
-        log_every = log_every or c.trainer.log_step
-        log = TrainLog(window=log_every)
-        it = iter(batches)
-        for i in range(self.step + 1, iterations + 1):
-            batch = next(it, None)
-            if batch is None:
-                break
-            image = batch["image"]
-            if (c.data.u8_transfer and isinstance(image, np.ndarray)
-                    and image.dtype != np.uint8):
-                image = quantize_image_u8(image)
-            loss, logp = self.train_step(image, batch["label"],
-                                         batch["label_lengths"],
-                                         batch["width"])
-            metrics = {"loss": loss}
-            if i % log_every == 0:
-                preds = ctc_greedy_decode_batch(logp.cpu().numpy(),
-                                                self.charset)
-                cer, wer = batch_cer_wer(batch["gt"], preds,
-                                         c.trainer.casesensitive)
-                metrics.update(CER=cer, WER=wer)
-            log.step(metrics)
-            if i % log_every == 0:
-                entry = log.record(i)
-                if on_log:
-                    on_log(entry)
-        return log
+    def _step_metrics(self, batch: Dict, log_step: bool) -> Dict:
+        """The step's loss, and on a log step the CER/WER of its batch."""
+        loss, logp = self.train_step(batch["image"], batch["label"],
+                                     batch["label_lengths"], batch["width"])
+        metrics = {"loss": loss}
+        if log_step:
+            preds = ctc_greedy_decode_batch(logp.cpu().numpy(), self.charset)
+            cer, wer = batch_cer_wer(batch["gt"], preds,
+                                     self.cfg.trainer.casesensitive)
+            metrics.update(CER=cer, WER=wer)
+        return metrics

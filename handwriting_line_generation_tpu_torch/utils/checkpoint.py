@@ -1,0 +1,152 @@
+"""Checkpoints of the port's trainers.
+
+Counterpart of ``handwriting_line_generation_tpu/utils/checkpoint.py``, in
+torch's idiom: a checkpoint is whatever the trainer's ``state_dict()``
+returns (model, optimizer, LR scheduler, step and the dropout/augmentation
+generator's state), written by ``torch.save`` to ``<name>.pt`` with an
+atomic replace, beside a JSON sidecar ``<name>.json`` of metadata.  Files,
+as there: ``checkpoint-iteration<N>`` every ``save_step``,
+``checkpoint-latest`` every ``save_step_minor``, and ``model_best`` (the
+model's weights only) when the monitored value improves.
+
+:func:`extract_subtree` takes one submodule's entries out of a state_dict
+by key prefix (``encoder`` out of an autoencoder's model), the role the
+JAX package's ``extract_subtree`` plays on nested param dicts.  JAX
+``.msgpack`` checkpoints are not read here.  Not ported: the archive mirror
+directory and the multi-process single-writer rule (the port trains in one
+process).
+"""
+
+from __future__ import annotations
+
+import glob
+import json
+import os
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+# train.py of the reference refuses to start a fresh run in a directory
+# that already holds checkpoints; resume instead
+CLOBBER_MSG = ("run directory {d} already contains checkpoints; resume "
+               "instead, or use a new config name")
+
+
+def _path(directory: str, name: str) -> str:
+    return os.path.join(directory, name + ".pt")
+
+
+def save_checkpoint(directory: str, name: str, obj: Any,
+                    meta: Optional[Dict] = None) -> str:
+    """``torch.save`` ``obj`` to ``<directory>/<name>.pt`` (and ``meta`` to
+    ``<name>.json``), each through a temporary file and an atomic replace,
+    so a reader never sees half a checkpoint."""
+    os.makedirs(directory, exist_ok=True)
+    path = _path(directory, name)
+    torch.save(obj, path + ".tmp")
+    os.replace(path + ".tmp", path)
+    if meta is not None:
+        mpath = os.path.join(directory, name + ".json")
+        with open(mpath + ".tmp", "w") as f:
+            json.dump(meta, f, indent=2, default=str)
+        os.replace(mpath + ".tmp", mpath)
+    return path
+
+
+def load_checkpoint(directory: str, name: str) -> Any:
+    """The saved object, its tensors on the CPU (tensors, numbers, strings
+    and containers only: ``weights_only``)."""
+    return torch.load(_path(directory, name), map_location="cpu",
+                      weights_only=True)
+
+
+def load_meta(directory: str, name: str) -> Dict:
+    """A checkpoint's sidecar metadata."""
+    with open(os.path.join(directory, name + ".json")) as f:
+        return json.load(f)
+
+
+def checkpoint_exists(directory: str, name: str) -> bool:
+    return os.path.exists(_path(directory, name))
+
+
+def extract_subtree(state_dict: Dict[str, torch.Tensor], prefix: str
+                    ) -> Dict[str, torch.Tensor]:
+    """The entries under ``prefix`` (e.g. ``"encoder"``), with the prefix
+    and its dot removed; raises ``KeyError`` if there are none."""
+    head = prefix.rstrip(".") + "."
+    out = {k[len(head):]: v for k, v in state_dict.items()
+           if k.startswith(head)}
+    if not out:
+        raise KeyError(f"no entries under {prefix!r}")
+    return out
+
+
+class CheckpointManager:
+    """The save_step / save_step_minor / best-model policy of a run
+    directory.  ``best`` starts from ``model_best.json``'s monitored value,
+    so a resumed run's first validation does not overwrite a better
+    ``model_best`` from before the restart."""
+
+    def __init__(self, directory: str, save_step: int = 25000,
+                 save_step_minor: int = 250):
+        self.directory = directory
+        self.save_step = save_step
+        self.save_step_minor = save_step_minor
+        self.best = float("inf")
+        best_meta = os.path.join(directory, "model_best.json")
+        if os.path.exists(best_meta):
+            try:
+                with open(best_meta) as f:
+                    self.best = float(json.load(f).get("monitor_value",
+                                                       float("inf")))
+            except (ValueError, OSError):
+                pass
+
+    def maybe_save(self, iteration: int, state: Callable[[], Any],
+                   meta: Dict, monitor_value: Optional[float] = None,
+                   best: Optional[Callable[[], Any]] = None) -> None:
+        """Save what is due at ``iteration``.  ``state`` and ``best`` are
+        called only when a save needs them: ``state()`` is the full
+        checkpoint, ``best()`` what ``model_best`` holds (``state()`` when
+        not given)."""
+        meta = dict(meta, iteration=iteration)
+        if self.save_step and iteration % self.save_step == 0:
+            save_checkpoint(self.directory,
+                            f"checkpoint-iteration{iteration}", state(), meta)
+        if self.save_step_minor and iteration % self.save_step_minor == 0:
+            save_checkpoint(self.directory, "checkpoint-latest", state(),
+                            meta)
+        if monitor_value is not None and monitor_value < self.best:
+            self.best = monitor_value
+            save_checkpoint(self.directory, "model_best",
+                            (best or state)(),
+                            dict(meta, monitor_value=float(monitor_value)))
+
+    def latest(self) -> Any:
+        return load_checkpoint(self.directory, "checkpoint-latest")
+
+    def has_latest(self) -> bool:
+        return checkpoint_exists(self.directory, "checkpoint-latest")
+
+    def has_checkpoints(self) -> bool:
+        """Any numbered, latest or best checkpoint in the run directory (a
+        run with ``save_step_minor=0`` writes no ``-latest`` but is just as
+        clobberable)."""
+        return any(glob.glob(os.path.join(self.directory, pat))
+                   for pat in ("checkpoint-*.pt", "model_best*.pt"))
+
+    def refuse_clobber(self, resume: bool) -> None:
+        """Raise rather than start a fresh run over a directory that holds
+        checkpoints; and, when resuming, rather than restart from step 0
+        over checkpoints that include no ``checkpoint-latest``."""
+        if not resume and self.has_checkpoints():
+            raise RuntimeError(CLOBBER_MSG.format(d=self.directory))
+        if resume and self.has_checkpoints() and not self.has_latest():
+            found = sorted(os.path.basename(p) for p in glob.glob(
+                os.path.join(self.directory, "*.pt")))
+            raise RuntimeError(
+                f"resume requested but {self.directory} has no "
+                f"checkpoint-latest to resume from (found: "
+                f"{', '.join(found)}). Restarting fresh would overwrite "
+                "these; move them away or point the run at a new save_dir.")

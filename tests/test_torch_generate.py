@@ -196,13 +196,15 @@ def test_entry_points_need_cuda_or_explicit_cpu():
         bench.build(2)
 
 
-# modules of the recognition and style slices that the walk below must
-# reach
+# modules of the recognition, style and autoencoder slices that the walk
+# below must reach
 HWR_MODULES = ("ops.ctc", "ops.augment", "models.hwr", "training.hwr_trainer",
                "training.train_state", "utils.error_rates",
                "utils._editdistance", "utils.train_log", "ops.align",
                "models.char_style", "models.layers", "inference.styles",
-               "data.datasets", "trace_style")
+               "data.datasets", "trace_style", "models.autoencoder",
+               "training.auto_trainer", "training.loop", "utils.checkpoint",
+               "trace_auto")
 
 
 def test_port_imports_no_jax():

@@ -155,9 +155,10 @@ def test_greedy_decode_and_error_rates_match_jax():
     assert batch_cer_wer(["abc"], ["abd"]) == (1 / 3, 1.0)
 
 
-def test_train_loop_logs_loss_and_cer():
+def test_train_loop_logs_loss_and_cer(tmp_path):
     cfg = load_config(str(CONFIG))
     cfg.data.augmentation = "warp"
+    cfg.trainer.save_dir = str(tmp_path)
     tr = HWRTrainer(cfg, device="cpu")
     tr.init_state(seed=0)
     image, label, label_lengths, width = _batch(3)

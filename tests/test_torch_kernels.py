@@ -292,3 +292,57 @@ def test_autoencode_card_matches_cpu(cuda):
     torch.testing.assert_close(aux["style"].cpu(), waux["style"],
                                atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=0.0)
+
+
+# -- the autoencoder path: the CTC kernel at T = W/8 ----------------------
+
+# the 192-, 1024- and 1344-px buckets at the autoencoder's T = W/8 frames,
+# with their 24/72/96 labels
+AUTO_CTC_SHAPES = [(24, 24), (128, 72), (168, 96)]
+
+
+@pytest.mark.parametrize("T,L", AUTO_CTC_SHAPES)
+def test_ctc_matches_plain_at_autoencoder_buckets(cuda, T, L):
+    lp, labels, lens, frames = _ctc_inputs(cuda, 28, T, 80, L, seed=T)
+    lens[2] = L                                   # cannot align in T // 2
+    labels[2] = torch.randint(1, 80, (L,), device=cuda, dtype=torch.int32)
+    frames[2] = T // 2
+    (nll_k, g_k), (nll_p, g_p) = _ctc_both(lp, labels, lens, frames)
+    torch.testing.assert_close(nll_k, nll_p, **CTC_NLL_TOL)
+    torch.testing.assert_close(g_k, g_p, **CTC_GRAD_TOL)
+    assert nll_k[2].item() == 0.0 and (g_k[2] == 0).all()
+
+
+def test_auto_trainer_step_kernel_matches_plain(cuda):
+    """One ``AutoTrainer`` loss at the paper width (B = 4, 64 x 256, T =
+    32) through the kernel, against the same forward and dropout masks
+    with the plain CTC: the loss and every parameter gradient."""
+    import pathlib
+    from handwriting_line_generation_tpu_torch.config import load_config
+    from handwriting_line_generation_tpu_torch.training.auto_trainer import \
+        AutoTrainer
+    cfg = load_config(str(pathlib.Path(__file__).resolve().parents[1]
+                          / "configs/iam_auto_2tight.json"))
+    tr = AutoTrainer(cfg, device=cuda)
+    tr.init_state(seed=0)
+    g = torch.Generator(cuda).manual_seed(1)
+    B, W, L = 4, 256, 12
+    image = torch.randint(0, 256, (B, 64, W, 1), generator=g, device=cuda,
+                          dtype=torch.uint8)
+    label = torch.randint(1, 80, (B, L), generator=g, device=cuda,
+                          dtype=torch.int32)
+    lens = torch.tensor([12, 9, 5, 1], device=cuda, dtype=torch.int32)
+    width = torch.tensor([256, 200, 128, 64], device=cuda, dtype=torch.int32)
+    before = ctc.ctc_loss_cuda.launches
+    loss_k, aux = tr.loss(image, label, lens, width)
+    assert ctc.ctc_loss_cuda.launches == before + 1
+    params = list(tr.model.parameters())
+    g_k = torch.autograd.grad(loss_k, params, retain_graph=True)
+    logp = aux["logp"]
+    loss_p = tr.w_auto * aux["autoLoss"] + tr.w_recog * ctc.ctc_loss(
+        logp, label, torch.full((B,), W // 8, device=cuda), lens)
+    g_p = torch.autograd.grad(loss_p, params)
+    torch.testing.assert_close(loss_k, loss_p, rtol=1e-5, atol=0.0)
+    for a, b in zip(g_k, g_p):
+        torch.testing.assert_close(a, b, rtol=0.0,
+                                   atol=1e-3 * b.abs().max().item())
