@@ -61,9 +61,25 @@ Phases, in order; any failure exits non-zero:
     ms per step and autoencoder-trained lines/s (CUDA-event medians, TF32
     off and on), one profiled window's idle share, and the CTC kernel's
     times at (28, 128, 72);
-11. under ``torch.profiler``, one CUDA launch per epilogue call (9 in a
+11. main path, GAN training — ``GanTrainer`` on
+    ``configs/iam_gan_paper.json`` (the paper model at full width with its
+    discriminator, the frozen ``2tight`` perceptual encoder, f32, TF32 off,
+    seeded weights), its recognizer loaded from a checkpoint of phase 7's
+    ``HWRTrainer`` and its encoder from phase 10's ``checkpoint-latest``
+    (each tensor held equal to the saved one): two 7-lesson cycles, the
+    image lessons on seeded u8 glyph lines of 64 x 1024 as 2 author pairs
+    (labels at 72), the text lessons on ``TextSampler`` labels at 96
+    (generated lines of 500 frames): finite losses, the style bank
+    growing, every spectral-norm ``u`` moved and of unit norm, the frozen
+    recognizer and encoder bit-unchanged, the discriminator moved in its
+    lessons only, 4 CTC launches a cycle; one gen and one auto lesson's
+    saved and merged gradients through the kernel against the plain CTC;
+    the CTC kernel against its plain version at (B, T, L) = (4, 500, 96)
+    and (4, 256, 72); then ``trace_gan``'s lesson and cycle times, rates,
+    per-layer split and idle share;
+12. under ``torch.profiler``, one CUDA launch per epilogue call (9 in a
     generation forward);
-12. summary — one JSON line of kernels (the CTC kernel once for each
+13. summary — one JSON line of kernels (the CTC kernel once for each
     path that runs it, with that path's launches and main-bucket times),
     then the device line last.
 
@@ -107,10 +123,11 @@ CTC_BUCKETS = [(48, 24), (256, 72), (336, 96)]
 CTC_MAIN = 1
 CTC_IMPOSSIBLE_BUCKET = (8, 12)    # every label longer than the frames
 # kernel vs plain, float32 on the card.  NLL: expf/logf against torch's
-# exp/log.  Gradient: the kernel forms exp(alpha + beta - ll) from
-# log-probabilities of magnitude |ll| ~ 1e3, which float32 carries to
-# ~1e-4 after T steps, so each entry has that relative error (the JAX
-# package bounds its Pallas kernel against its scan by rtol 1e-3)
+# exp/log.  Gradient: the kernel forms exp(alpha + beta - z_t) from
+# log-probabilities of magnitude ~1e3, which float32 carries to ~1e-4
+# relative within a row after T steps (z_t, the row's own log-sum-exp,
+# cancels the error common to the row; the JAX package bounds its Pallas
+# kernel against its scan by rtol 1e-3)
 CTC_NLL_TOL = dict(rtol=1e-5, atol=1e-4)
 CTC_GRAD_TOL = dict(rtol=2e-3, atol=1e-5)
 # float operations per (t, s) state of the valid label: ~20 for the alpha
@@ -138,6 +155,14 @@ AUTO_CTC_MAIN = 1
 # the same state and inputs (cuDNN's forward algorithms are deterministic,
 # so they should be bit-equal)
 RESUME_RTOL = 1e-6
+GAN_CYCLES = 2
+# the GAN's CTC buckets at its B = 4: genRecog on a generated line of
+# gen_spaced_len = min(500, 6 x 96) frames with labels at 96 (the main
+# one, first), reconRecog at T = W/4 = 256 with labels at 72
+GAN_CTC_BUCKETS = [(500, 96), (256, 72)]
+# one lesson's gradients, kernel vs plain CTC, from the same state and
+# draws, relative to each tensor's largest entry (as TRAIN_GRAD_RTOL)
+GAN_GRAD_RTOL = 1e-3
 
 
 def block_shapes(dim=256, t=192):
@@ -629,18 +654,197 @@ def check_auto_grads(torch, ctc, ta, batch):
                              "with the plain CTC")
 
 
-def auto_phase(torch, tt, F, ctc, ta, load_config, card):
-    """Phase 10.  Returns (CTC launches, max CTC error, the CTC times at
-    the main bucket)."""
-    with tempfile.TemporaryDirectory() as run_dir:
-        launches, tr, batch = auto_main_path(torch, ctc, ta, load_config,
-                                             run_dir)
+def auto_phase(torch, tt, F, ctc, ta, load_config, card, run_dir):
+    """Phase 10, its checkpoints in ``run_dir``.  Returns (CTC launches,
+    max CTC error, the CTC times at the main bucket)."""
+    launches, tr, batch = auto_main_path(torch, ctc, ta, load_config,
+                                         run_dir)
     check_auto_grads(torch, ctc, ta, batch)
     err = max(check_ctc(torch, ctc, T, L, seed=T + L, batch=ta.B)
               for T, L in AUTO_CTC_BUCKETS)
     ta.report(tr, _args(batch), card)
     T, L = AUTO_CTC_BUCKETS[AUTO_CTC_MAIN]
     times = time_ctc(torch, tt, F, ctc, T, L, card, batch=ta.B)
+    del tr
+    torch.cuda.empty_cache()
+    return launches, err, times
+
+
+def _gan_snapshot(tr):
+    """What a lesson reads and changes, apart from the optimizers."""
+    s = tr.state
+    return ({k: v.clone() for k, v in tr.model.state_dict().items()},
+            [g.clone() for g in s.saved_recog + s.saved_adv],
+            s.style_bank.clone(), s.bank_count, s.have_saved,
+            s.generator.get_state(), tr.text.rng.bit_generator.state)
+
+
+def _gan_restore(tr, snap):
+    s = tr.state
+    model, saved, bank, count, have, gen, text = snap
+    tr.model.load_state_dict(model)
+    for g, v in zip(s.saved_recog + s.saved_adv, saved):
+        g.copy_(v)
+    s.style_bank.copy_(bank)
+    s.bank_count, s.have_saved = count, have
+    s.generator.set_state(gen)
+    tr.text.rng.bit_generator.state = text
+
+
+def check_gan_grads(torch, ctc, tr, batch):
+    """A gen lesson's saved groups and an auto lesson's groups and merged
+    update, each lesson run twice from the same state and draws, with
+    deterministic cuDNN algorithms (so that the CTC is all that differs):
+    through the kernel, then through the plain CTC.  Returns the worst
+    relative difference."""
+    from handwriting_line_generation_tpu_torch.training import \
+        gan_trainer as gt_mod
+    kernel_ctc = gt_mod.ctc_loss_fast
+
+    def plain_ctc(logp, label, lens):
+        B, T, _ = logp.shape
+        return ctc.ctc_loss(logp, label, torch.full((B,), T,
+                                                    device=logp.device), lens)
+
+    def gen_lesson():
+        tb = tr.text.get_batch(label_len=max(tr.cfg.data.label_buckets))
+        return tr.step_gen_nostep(tb["label"], tb["label_lengths"],
+                                  tr.gen_spaced_len)
+
+    def auto_lesson():
+        return tr.step_auto(batch["image"], batch["label"],
+                            batch["label_lengths"], batch["fg_mask"],
+                            batch["width"], batch["a_batch_size"])
+    worst = 0.0
+    for name, lesson, keys in (
+            ("gen", gen_lesson, ("recog_g", "adv_g")),
+            ("auto", auto_lesson, ("main_g", "adv_g", "recog_g",
+                                   "merged"))):
+        snap = _gan_snapshot(tr)
+        outs = []
+        for route in (kernel_ctc, plain_ctc):
+            _gan_restore(tr, snap)
+            gt_mod.ctc_loss_fast = route
+            torch.backends.cudnn.deterministic = True
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                outs.append(lesson())
+            finally:
+                gt_mod.ctc_loss_fast = kernel_ctc
+                torch.backends.cudnn.deterministic = False
+                torch.use_deterministic_algorithms(False)
+        _gan_restore(tr, snap)
+        for k in keys:
+            err = max(((a - b).abs().max()
+                       / b.abs().max().clamp(min=1e-30)).item()
+                      for a, b in zip(outs[0][k], outs[1][k])
+                      if b.abs().max() > 0)
+            worst = max(worst, err)
+            print(f"{name} lesson, kernel vs plain CTC: {k} worst tensor "
+                  f"max abs diff / max abs {err:.2e} (bound "
+                  f"{GAN_GRAD_RTOL})", flush=True)
+    if not worst <= GAN_GRAD_RTOL:
+        raise AssertionError("a GAN lesson's gradients through the kernel "
+                             "disagree with the plain CTC")
+    return worst
+
+
+def gan_main_path(torch, ctc, tg, hwr_ckpt, auto_ckpt):
+    """Two 7-lesson cycles of the paper GAN with its pretrained recognizer
+    and perceptual encoder loaded from the port's own checkpoints.
+    Returns (CTC launches, trainer, batches)."""
+    from handwriting_line_generation_tpu_torch.utils.checkpoint import (
+        extract_subtree,
+    )
+    tr = tg.trainer(DEVICE, seed=0, pretrained_hwr=hwr_ckpt,
+                    encoder_weights=auto_ckpt)
+    c = tr.cfg
+    print(f"GAN config {tg.CONFIG.name}: hwr {c.model.hwr.kind}, style "
+          f"{c.model.style.style_dim}, generator {c.model.generator.dim}, "
+          f"discriminator {c.model.discriminator.dim}, encoder "
+          f"{c.trainer.encoder_type}, augmentation {c.data.augmentation}, "
+          f"loss weights {c.trainer.loss_weights}; B={tg.B}, 64x{tg.tt.W}; "
+          f"gen_spaced_len {tr.gen_spaced_len}", flush=True)
+    load = lambda p: torch.load(p + ".pt", map_location="cpu",
+                                weights_only=True)["model"]
+    for what, got, want in (
+            ("recognizer", tr.model.hwr.state_dict(), load(hwr_ckpt)),
+            ("perceptual encoder", tr.encoder.state_dict(),
+             extract_subtree(load(auto_ckpt), "encoder"))):
+        same = set(got) == set(want) and all(
+            torch.equal(got[k].cpu(), want[k]) for k in want)
+        print(f"{what} loaded from its checkpoint: {len(want)} tensors, "
+              f"equal {same}", flush=True)
+        if not same:
+            raise AssertionError(f"the {what} differs from its checkpoint")
+    s = tr.state
+    frozen = [p.detach().clone() for p, l in zip(s.params, s.labels)
+              if l == "frozen"]
+    enc = [p.detach().clone() for p in tr.encoder.parameters()]
+    disc = [p for p, l in zip(s.params, s.labels) if l == "disc"]
+    sn = [m for m in tr.model.discriminator.sn]
+    u0 = [m.u.clone() for m in sn]
+    batches = itertools.cycle([tg.batch(DEVICE, seed) for seed in range(3)])
+    ctc.ctc_loss_cuda.launches = 0
+    n = len(tr.curriculum.stages[0][1])
+    banks, moves = [], []
+    for i in range(GAN_CYCLES * n):
+        lesson = tr.curriculum.get_lesson(i)
+        before = [p.detach().clone() for p in disc]
+        out = tr.run_lesson(lesson, batches, iteration=i)
+        vals = {k: float(v) for k, v in out.items()
+                if k.endswith("Loss") or k.startswith("gnorm")}
+        moved = any(not torch.equal(a, p) for a, p in zip(before, disc))
+        moves.append(("disc" in lesson) == moved)
+        banks.append(s.bank_count)
+        print(f"lesson {i} {'+'.join(lesson)}: "
+              + " ".join(f"{k} {v:.5g}" for k, v in vals.items())
+              + f"; bank {s.bank_count}; discriminator moved {moved}",
+              flush=True)
+        if not all(math.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"lesson {i}: a loss is not finite")
+    launches = ctc.ctc_loss_cuda.launches
+    u_moved = all(not torch.equal(a, m.u) for a, m in zip(u0, sn)
+                  if m.u.numel() > 1)
+    u_norm = max(abs(m.u.norm().item() - 1.0) for m in sn)
+    frozen_same = all(torch.equal(a, p) for a, p in zip(
+        frozen, [p for p, l in zip(s.params, s.labels) if l == "frozen"]))
+    enc_same = all(torch.equal(a, p)
+                   for a, p in zip(enc, tr.encoder.parameters()))
+    want_launches = 4 * GAN_CYCLES
+    print(f"GAN, {GAN_CYCLES} cycles: bank counts {banks}; every u moved "
+          f"{u_moved}, max |norm - 1| {u_norm:.2e}; recognizer and encoder "
+          f"unchanged {frozen_same} {enc_same}; discriminator moved in its "
+          f"lessons only {all(moves)}; ctc launches {launches} (want "
+          f"{want_launches})", flush=True)
+    if not (banks[-1] > banks[0] and banks == sorted(banks)):
+        raise AssertionError("the style bank did not grow")
+    if not (u_moved and u_norm <= 1e-5):
+        raise AssertionError("a spectral-norm u did not move or lost its "
+                             "unit norm")
+    if not (frozen_same and enc_same):
+        raise AssertionError("the frozen recognizer or encoder changed")
+    if not all(moves):
+        raise AssertionError("the discriminator moved outside its lessons "
+                             "(or not in them)")
+    if launches != want_launches:
+        raise AssertionError(f"expected {want_launches} ctc launches, got "
+                             f"{launches}")
+    return launches, tr, batches
+
+
+def gan_phase(torch, tt, F, ctc, card, hwr_ckpt, auto_ckpt):
+    """Phase 11.  Returns (CTC launches, max CTC error, the CTC times at
+    the main bucket)."""
+    from handwriting_line_generation_tpu_torch import trace_gan as tg
+    launches, tr, batches = gan_main_path(torch, ctc, tg, hwr_ckpt,
+                                          auto_ckpt)
+    check_gan_grads(torch, ctc, tr, next(batches))
+    err = max(check_ctc(torch, ctc, T, L, seed=T + L, batch=tg.B)
+              for T, L in GAN_CTC_BUCKETS)
+    tg.report(tr, batches, card)
+    T, L = GAN_CTC_BUCKETS[0]
+    times = time_ctc(torch, tt, F, ctc, T, L, card, batch=tg.B)
     del tr
     torch.cuda.empty_cache()
     return launches, err, times
@@ -669,6 +873,8 @@ def main():
     from handwriting_line_generation_tpu_torch.ops import gen_epilogue as ge
     from handwriting_line_generation_tpu_torch.training.hwr_trainer import \
         HWRTrainer
+    from handwriting_line_generation_tpu_torch.utils.checkpoint import \
+        save_checkpoint
 
     # 1. device
     smi = subprocess.run(
@@ -813,6 +1019,11 @@ def main():
               flush=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # the recognizer the GAN phase loads: phase 7's trainer, saved
+    ckpts = tempfile.TemporaryDirectory()
+    hwr_ckpt = pathlib.Path(ckpts.name, "hwr", "checkpoint-latest")
+    save_checkpoint(str(hwr_ckpt.parent), hwr_ckpt.name,
+                    trainer.state_dict())
     del trainer
     ctc_times = [time_ctc(torch, tt, F, ctc, T, L, card)
                  for T, L in CTC_BUCKETS]
@@ -823,12 +1034,22 @@ def main():
 
     # 10. main path: autoencoder pretraining through the CTC kernel at
     # T = W/8 (leaves TF32 off)
+    auto_dir = pathlib.Path(ckpts.name, "auto")
     auto_launches, auto_err, auto_t = auto_phase(torch, tt, F, ctc, ta,
-                                                 load_config, card)
-    print(f"ctc launches on the main paths: HWR training {ctc_launches}, "
-          f"autoencoder pretraining {auto_launches}", flush=True)
+                                                 load_config, card,
+                                                 str(auto_dir))
 
-    # 11. one CUDA launch per epilogue call, seen by the profiler (last, so
+    # 11. main path: GAN training through the CTC kernel at its buckets
+    auto_ckpt = auto_dir / load_config(str(AUTO_CONFIG)).name \
+        / "checkpoint-latest"
+    gan_launches, gan_err, gan_t = gan_phase(torch, tt, F, ctc, card,
+                                             str(hwr_ckpt), str(auto_ckpt))
+    ckpts.cleanup()
+    print(f"ctc launches on the main paths: HWR training {ctc_launches}, "
+          f"autoencoder pretraining {auto_launches}, GAN training "
+          f"{gan_launches}", flush=True)
+
+    # 12. one CUDA launch per epilogue call, seen by the profiler (last, so
     # that its hooks touch no timed phase), on a small paper-width session
     small, s_labels, s_lens, s_styles = bench.build(CHECK_BATCH)
     cuda_launches = count_device_kernels(
@@ -840,7 +1061,7 @@ def main():
         raise AssertionError(f"expected one CUDA launch per epilogue call, "
                              f"9 per forward; got {cuda_launches}")
 
-    # 12. summary
+    # 13. summary
     print(smi)
     # the CTC kernel once per path that runs it: each entry's launches come
     # from that path's run, its times from that path's main bucket
@@ -848,7 +1069,9 @@ def main():
         ("HWR training", (CTC_BATCH,) + CTC_BUCKETS[CTC_MAIN], ctc_launches,
          ctc_err, main_t),
         ("autoencoder pretraining", (ta.B,) + AUTO_CTC_BUCKETS[AUTO_CTC_MAIN],
-         auto_launches, auto_err, auto_t)]
+         auto_launches, auto_err, auto_t),
+        ("GAN training", (4,) + GAN_CTC_BUCKETS[0], gan_launches, gan_err,
+         gan_t)]
     print(json.dumps({"kernels": [{
         "name": "gen_epilogue", "route": "cuda",
         "source": "handwriting_line_generation_tpu_torch/csrc/gen_epilogue.cu",

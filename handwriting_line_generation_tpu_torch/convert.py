@@ -1,11 +1,12 @@
 """flax param trees -> this package's ``state_dict``s.
 
-:func:`convert_params` covers the ``generator``, ``spacer``, ``hwr`` and
-``style_extractor`` subtrees of ``HWWithStyle``; the discriminator's
-subtree is skipped (:data:`SKIPPED_SUBTREES`, its module is not ported
-yet) and any other key raises.  :func:`convert_hwr_params` converts a
-``CNNOnlyHWR`` tree and :func:`convert_autoencoder_params` an
-``Autoencoder`` tree.  Layout rules:
+:func:`convert_params` covers the ``generator``, ``spacer``, ``hwr``,
+``style_extractor`` and ``discriminator`` subtrees of ``HWWithStyle``, and
+the discriminator's ``spectral`` collection when given (each
+``SNConv_<i>/u``, a buffer of the port's ``sn.<i>``); any other key
+raises.
+:func:`convert_hwr_params` converts a ``CNNOnlyHWR`` tree and
+:func:`convert_autoencoder_params` an ``Autoencoder`` tree.  Layout rules:
 
 * Dense ``[in, out]`` -> Linear ``[out, in]``.
 * 2-D conv HWIO -> OIHW; 1-D conv ``[k, in, out]`` -> ``[out, in, k]``.
@@ -27,13 +28,10 @@ bfloat16 leaves (``ml_dtypes``) convert exactly through float32.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping
+from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
-
-# HWWithStyle subtrees whose modules this package does not port yet
-SKIPPED_SUBTREES = ("discriminator",)
 
 
 def _tensor(a) -> torch.Tensor:
@@ -191,9 +189,44 @@ def _style_extractor(tree: Mapping, out, p: str) -> None:
             raise KeyError(f"{w}: unknown key")
 
 
-def convert_params(params: Mapping) -> Dict[str, torch.Tensor]:
+def _discriminator(tree: Mapping, spectral: Optional[Mapping], out,
+                   p: str) -> None:
+    """``Conv_<i>`` -> ``convs.<i>``, ``GroupNorm_<i>`` -> ``norms.<i>``,
+    ``SNConv_<i>`` -> ``sn.<i>`` (with ``u`` from ``spectral``), and the
+    ``global_fc``/``global_out``/``cond_proj`` dense layers."""
+    for name, sub in tree.items():
+        w = f"discriminator/{name}"
+        if name.startswith("Conv_"):
+            _layer(sub, w, out, f"{p}convs.{_index(name, 'Conv_')}.")
+        elif name.startswith("GroupNorm_"):
+            _gn(sub, w, out, f"{p}norms.{_index(name, 'GroupNorm_')}.")
+        elif name.startswith("SNConv_"):
+            i = _index(name, "SNConv_")
+            _layer(sub, w, out, f"{p}sn.{i}.")
+            if spectral is None:
+                continue
+            if name not in spectral:
+                raise KeyError(f"{w}: no spectral/u for it")
+            _leaves(spectral[name], f"spectral/{w}", out, f"{p}sn.{i}.",
+                    {"u": ("u", _ident)})
+        elif name in ("global_fc", "global_out"):
+            _layer(sub, w, out, f"{p}{name}.", _dense)
+        elif name == "cond_proj":
+            _leaves(sub, w, out, f"{p}{name}.", {"kernel": ("weight", _dense)})
+        else:
+            raise KeyError(f"{w}: unknown key")
+    extra = set(spectral or ()) - set(tree)
+    if extra:
+        raise KeyError(f"spectral/discriminator: unknown keys {sorted(extra)}")
+
+
+def convert_params(params: Mapping, spectral: Optional[Mapping] = None
+                   ) -> Dict[str, torch.Tensor]:
     """flax ``params`` (nested dict of arrays) -> ``HWWithStyle`` state_dict
-    for its ``generator``, ``spacer``, ``hwr`` and ``style_extractor``."""
+    for its ``generator``, ``spacer``, ``hwr``, ``style_extractor`` and
+    ``discriminator``; ``spectral`` is the flax ``spectral`` collection,
+    whose ``u``'s a discriminator's spectral-norm convs load (without it
+    their ``u`` entries are left out)."""
     out: Dict[str, torch.Tensor] = {}
     for name, sub in params.items():
         if name == "generator":
@@ -204,7 +237,10 @@ def convert_params(params: Mapping) -> Dict[str, torch.Tensor]:
             _hwr(sub, out, "hwr.")
         elif name == "style_extractor":
             _style_extractor(sub, out, "style_extractor.")
-        elif name not in SKIPPED_SUBTREES:
+        elif name == "discriminator":
+            _discriminator(sub, (spectral or {}).get("discriminator"), out,
+                           "discriminator.")
+        else:
             raise KeyError(f"unknown subtree {name!r}")
     return out
 

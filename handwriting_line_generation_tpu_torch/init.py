@@ -1,9 +1,10 @@
 """Seeded parameter init in the port, so the card runs without JAX.
 
-:func:`init_params` builds the ``generator``, ``spacer``, ``hwr`` and
-``style_extractor`` subtrees of the flax ``HWWithStyle`` param tree (those
-the config enables), in flax's layout and with flax's distributions (it
-matches the distributions, not the bits):
+:func:`init_params` builds the ``generator``, ``spacer``, ``hwr``,
+``style_extractor`` and ``discriminator`` subtrees of the flax
+``HWWithStyle`` param tree (those the config enables), in flax's layout
+and with flax's distributions (it matches the distributions, not the
+bits):
 
 * lecun_normal — a normal truncated at 2 sigma, std ``sqrt(1/fan_in) /
   0.8796`` — for ``nn.Conv``, ``nn.ConvTranspose`` and ``nn.Dense``;
@@ -11,10 +12,14 @@ matches the distributions, not the bits):
 * zero biases; AdaIN bias (gamma = 1, beta = 0); noise weight 0.01;
   GroupNorm scale 1, bias 0; spacer mean (2, 0) and std (1.5, 0.5);
 * the vmapped per-class extractors draw each class's kernels on their own,
-  with the per-class fan-in.
+  with the per-class fan-in;
+* the discriminator's kernels (``nn.Conv``, ``SNConv``, ``nn.Dense``)
+  lecun_normal, its shapes read off the port's module (the tests hold them
+  against flax's own init); :func:`init_spectral` gives each ``SNConv`` a
+  random unit ``u``, from a generator of its own.
 
-The generator and spacer draw first, so their weights do not depend on
-whether the other subtrees are built.
+The generator and spacer draw first and the discriminator last, so each
+subtree's weights depend only on the subtrees drawn before it.
 
 :func:`init_model` loads it through :func:`convert.convert_params`.
 :func:`init_hwr_params` builds a ``CNNOnlyHWR`` tree the same way
@@ -37,6 +42,8 @@ from handwriting_line_generation_tpu_torch.convert import (
 )
 from handwriting_line_generation_tpu_torch.models.autoencoder import \
     Autoencoder
+from handwriting_line_generation_tpu_torch.models.discriminator import \
+    DiscriminatorAP
 from handwriting_line_generation_tpu_torch.models.hw_with_style import \
     HWWithStyle
 from handwriting_line_generation_tpu_torch.models.hwr import (
@@ -123,7 +130,50 @@ def init_params(cfg: ModelConfig, seed: int = 0) -> Dict:
         params["hwr"] = _hwr_tree(rng, cfg.hwr, cfg.num_class)
     if cfg.style.kind == "char":
         params["style_extractor"] = _style_tree(rng, cfg)
+    if cfg.discriminator.enabled:
+        params["discriminator"] = _disc_tree(rng, cfg)
     return params
+
+
+def _discriminator(cfg: ModelConfig) -> DiscriminatorAP:
+    """The config's discriminator on the meta device (shapes only)."""
+    d = cfg.discriminator
+    with torch.device("meta"):
+        return DiscriminatorAP(dim=d.dim, use_low=d.use_low,
+                               use_med=d.use_med, small=d.small, cond=d.cond,
+                               use_global=d.use_global,
+                               style_dim=cfg.style.style_dim)
+
+
+def _disc_tree(rng, cfg: ModelConfig) -> Dict:
+    """A ``DiscriminatorAP`` tree, in flax's layer names."""
+    m = _discriminator(cfg)
+    tree = {}
+    for stem, layers in (("Conv_", m.convs), ("SNConv_", m.sn)):
+        for i, layer in enumerate(layers):
+            tree[f"{stem}{i}"] = _layer(rng, _flax_kernel_shape(layer))
+    for i, norm in enumerate(m.norms):
+        tree[f"GroupNorm_{i}"] = _norm(norm.weight.numel())
+    for name in ("global_fc", "global_out", "cond_proj"):
+        lin = getattr(m, name)
+        if lin is not None:
+            layer = _layer(rng, tuple(lin.weight.shape[::-1]))
+            tree[name] = layer if lin.bias is not None \
+                else {"kernel": layer["kernel"]}
+    return tree
+
+
+def init_spectral(cfg: ModelConfig, seed: int = 0) -> Dict:
+    """Flax-layout ``spectral`` collection: a random unit ``u`` for each of
+    the discriminator's spectral-norm convs (``{}`` without one)."""
+    if not cfg.discriminator.enabled:
+        return {}
+    rng = np.random.default_rng([seed, 1])
+    us = {}
+    for i, layer in enumerate(_discriminator(cfg).sn):
+        u = rng.standard_normal(layer.weight.shape[0]).astype(np.float32)
+        us[f"SNConv_{i}"] = {"u": u / (np.linalg.norm(u) + 1e-12)}
+    return {"discriminator": us}
 
 
 def _bank_layer(rng, n: int, shape) -> Dict[str, np.ndarray]:
@@ -178,7 +228,8 @@ def _style_tree(rng, cfg: ModelConfig) -> Dict:
 def init_model(cfg: ModelConfig, seed: int = 0) -> HWWithStyle:
     """``HWWithStyle`` on the CPU with seeded flax-distributed weights."""
     model = HWWithStyle(cfg)
-    model.load_state_dict(convert_params(init_params(cfg, seed)))
+    model.load_state_dict(convert_params(init_params(cfg, seed),
+                                         init_spectral(cfg, seed)))
     return model
 
 

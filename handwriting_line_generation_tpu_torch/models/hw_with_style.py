@@ -1,8 +1,8 @@
 """Composite handwriting-generation model.
 
 Counterpart of ``handwriting_line_generation_tpu/models/hw_with_style.py``:
-the recognizer (``hwr``), the style extractor, the ``generator`` and the
-``spacer``, and the flows over them:
+the recognizer (``hwr``), the style extractor, the ``generator``, the
+``discriminator`` and the ``spacer``, and the flows over them:
 
 * ``generate`` / ``generate_spaced`` — labels + style -> spacer counts ->
   spaced one-hot -> generator image;
@@ -11,12 +11,13 @@ the recognizer (``hwr``), the style extractor, the ``generator`` and the
   width-concatenated lines of each author -> one style per author, repeated
   per line;
 * ``autoencode`` — extract the style, align the prediction to the label
-  (``viterbi_align``) and regenerate the line.
+  (``viterbi_align``) and regenerate the line;
+* ``discriminate`` — the discriminator's per-scale scores.
 
 Every submodule is built when the config asks for it (the recognizer
 unless ``hwr.kind`` is "none", the extractor when ``style.kind`` is
-"char"); a flow runs only the ones it needs, so generation never runs the
-recognizer.  The discriminator comes with a later slice (ROADMAP.md).
+"char", the discriminator when ``discriminator.enabled``); a flow runs only
+the ones it needs, so generation never runs the recognizer.
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ from handwriting_line_generation_tpu_torch.config import ModelConfig
 from handwriting_line_generation_tpu_torch.models.char_style import \
     CharStyleEncoder
 from handwriting_line_generation_tpu_torch.models.count_cnn import CountCNN
+from handwriting_line_generation_tpu_torch.models.discriminator import \
+    DiscriminatorAP
 from handwriting_line_generation_tpu_torch.models.generator import \
     SpacedGenerator
 from handwriting_line_generation_tpu_torch.models.hwr import build_hwr
@@ -77,6 +80,11 @@ class HWWithStyle(nn.Module):
             fused_epilogue=c.generator.fused_epilogue,
             phase_upsample=c.generator.phase_upsample,
             dtype=dt) if c.generator.kind == "pure" else None
+        d = c.discriminator
+        self.discriminator = DiscriminatorAP(
+            dim=d.dim, use_low=d.use_low, use_med=d.use_med, small=d.small,
+            cond=d.cond, use_global=d.use_global, style_dim=s.style_dim,
+            dtype=dt) if d.enabled else None
         self.spacer = CountCNN(
             in_ch=c.num_class + c.style.style_dim, hidden=c.spacer.dim,
             n_out=2 if c.spacer.count_duplicates else 1,
@@ -131,14 +139,27 @@ class HWWithStyle(nn.Module):
             gen_style = mu + torch.exp(log_sigma) * eps
         else:
             gen_style = _flat_style(style)
-        if spaced_label is None:
-            spaced_label = viterbi_align(pred, labels, label_lengths)
+        if spaced_label is None:       # discrete: no gradient flows
+            spaced_label = viterbi_align(pred.detach(), labels,
+                                         label_lengths)
         recon = self.generator(
             onehot(spaced_label, self.cfg.num_class), gen_style, noise=noise,
             spaced_style=self._spaced_style(spaced_label, style),
             generator=generator)
         return recon, {"style": style, "pred": pred,
                        "spaced_label": spaced_label}
+
+    def discriminate(self, image: torch.Tensor,
+                     style: Optional[torch.Tensor] = None,
+                     update_u: bool = True,
+                     generator: Optional[torch.Generator] = None
+                     ) -> List[torch.Tensor]:
+        """Per-scale float32 scores ``[B, N_i]`` of ``[B, 64, W, 1]``
+        images; each spectral-norm conv advances its ``u`` when
+        ``update_u``.  ``style``: the conditioning style of a ``cond``
+        discriminator; ``generator``: dropout masks (off without one)."""
+        return self.discriminator(image, style=style, update_u=update_u,
+                                  generator=generator)
 
     def space(self, labels, label_lengths, style, *, spaced_len: int,
               generator: Optional[torch.Generator] = None, normals=None):

@@ -200,6 +200,49 @@ def avg_pool(x: torch.Tensor, window: Tuple[int, int]) -> torch.Tensor:
     return F.avg_pool2d(x, window)
 
 
+def _l2normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    return v / (torch.linalg.vector_norm(v) + eps)
+
+
+class SNConv(nn.Module):
+    """Conv with spectral normalization by one power iteration per forward.
+
+    ``u`` (``[out]``) is a buffer, flax's ``spectral/u``.  A forward takes
+    ``v = n(W u)`` and ``u' = n(Wᵀ v)`` from the detached weight (``W`` the
+    ``[out, in*kh*kw]`` matrix, ``n`` the l2 normalization), divides the
+    weight by ``σ = u'ᵀ W v``, through which the gradient does flow, and,
+    when ``update_u``, stores ``u'`` in the buffer (a new tensor copied in
+    under ``no_grad``; no graph holds the buffer).  The conv pads by
+    ``(top, bottom, left, right)`` with zeros and runs VALID in ``dtype``;
+    the power iteration stays float32."""
+
+    def __init__(self, in_ch: int, features: int,
+                 kernel: Tuple[int, int] = (3, 3),
+                 padding: Tuple[int, int, int, int] = (0, 0, 0, 0),
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.padding, self.dtype = padding, dtype
+        self.weight = nn.Parameter(torch.empty(features, in_ch, *kernel))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("u", torch.zeros(features))
+
+    def normalized_weight(self, update_u: bool = True) -> torch.Tensor:
+        w = self.weight.reshape(self.weight.shape[0], -1)     # [out, in*k*k]
+        with torch.no_grad():
+            wd = w.detach().float()
+            v = _l2normalize(wd.t() @ self.u)
+            u_new = _l2normalize(wd @ v)
+            if update_u:
+                self.u.copy_(u_new)
+        sigma = torch.dot(u_new, w.float() @ v)
+        return self.weight / (sigma + 1e-12)
+
+    def forward(self, x: torch.Tensor, update_u: bool = True) -> torch.Tensor:
+        w = self.normalized_weight(update_u)
+        return F.conv2d(_pad2d(x.to(self.dtype), self.padding, "zero"),
+                        w.to(self.dtype), self.bias.to(self.dtype))
+
+
 def channel_dropout(x: torch.Tensor, rate: float,
                     generator: Optional[torch.Generator],
                     per_channel: bool) -> torch.Tensor:

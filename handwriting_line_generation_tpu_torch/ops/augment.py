@@ -10,7 +10,8 @@ Counterpart of the ``"warp"`` and ``"affine"`` kinds of
 * :func:`affine_slant_stretch` — horizontal shear about mid-height and a
   horizontal stretch, by inverse bilinear sampling;
 * :func:`dequantize_image` — u8 pixels to the normalized range on the
-  device, and :func:`quantize_image_u8` (numpy) back.
+  device, and :func:`quantize_image_u8` (numpy) back;
+* :func:`fg_to_float` — a bool foreground mask to float32 on the device.
 
 Images are normalized (``1 - px/128``: background -1, ink ~ +1), NHWC
 ``[B, H, W, 1]``, as in the JAX package.  Every random function takes a
@@ -195,6 +196,14 @@ def dequantize_image(img: torch.Tensor,
         x = torch.where(col[None, None, :, None]
                         < width.to(x.device)[:, None, None, None], x, -1.0)
     return x
+
+
+def fg_to_float(fg: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A bool foreground mask -> float32 on its device; a float mask (or
+    None) passes through."""
+    if fg is not None and fg.dtype == torch.bool:
+        return fg.float()
+    return fg
 
 
 def quantize_image_u8(img_f32: np.ndarray) -> np.ndarray:

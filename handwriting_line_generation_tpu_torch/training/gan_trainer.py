@@ -1,0 +1,528 @@
+"""GAN trainer: phase 3 of the system, the multi-task curriculum.
+
+Counterpart of ``handwriting_line_generation_tpu/training/gan_trainer.py``.
+A curriculum (the paper's 7 lessons) picks one of four lesson steps per
+iteration:
+
+  ``count``          — style -> spacer counts against the counts decoded
+                       from the recognizer's alignment (MSE); main update
+  ``no-step, gen``   — a text batch: genRecog CTC (the frozen recognizer
+                       reads the generated line) and the generator's
+                       adversarial loss; both gradient groups are **saved**
+                       (added to what consecutive no-step lessons saved),
+                       no update
+  ``auto, auto-gen`` — an image batch: autoencode; the main group is the
+                       fg-masked L1 plus the perceptual loss (frozen
+                       encoder), beside the adversarial and reconRecog
+                       groups; the saved and fresh groups are rescaled by
+                       ``x * mean|D| / mean|R|`` and merged into the main
+                       update; one style per author goes to the bank
+  ``disc``           — hinge loss on real against generated lines; the
+                       discriminator's update
+
+As in the JAX trainer, the autoencode / generate forward runs **once** and
+each loss group's parameter gradient is that forward's vector-Jacobian
+product with the group's image cotangent: one ``torch.autograd.grad(image,
+params, cotangent, retain_graph=True)`` per group, the heads differentiated
+with respect to a detached copy of the image.  The gradients cover every
+parameter, the frozen recognizer's and the discriminator's included, since
+the balancing averages over them.  Every discriminator forward advances its
+spectral-norm ``u``'s.  Dropout is off in every step, as the JAX trainer
+passes no dropout rng.  The generator runs its plain path (the epilogue
+kernel has no backward); the CTC goes through ``ops.ctc.ctc_loss_fast``,
+the CUDA kernel on the card.
+
+Each step takes ``draws=``, a mapping of the step's random draws (tests
+inject the JAX trainer's): ``"noise"`` (the generator's 10 planes),
+``"normals"`` (``insert_spaces``' two jitter planes) and ``"bank"``
+(``bank_sample``'s ``(idx, mix, normal)``).  What is not given is drawn
+from the state's ``torch.Generator``, as are the augmentation's draws.
+
+Not ported yet (``ROADMAP.md``): ``train`` with validation, checkpoints,
+resume and SIGINT, ``eval_step``/``eval_gen_step``, SWA, the pseudo-labels
+of ``$UNKOWN$`` lines, the sample dumps, and the VAE style's KL.
+"""
+
+from __future__ import annotations
+
+import os
+import warnings
+from typing import Any, Dict, Iterator, List, Mapping, Optional
+
+import numpy as np
+import torch
+
+from handwriting_line_generation_tpu_torch.charset import get_charset
+from handwriting_line_generation_tpu_torch.config import Config
+from handwriting_line_generation_tpu_torch.convert import convert_params
+from handwriting_line_generation_tpu_torch.data.text_data import TextSampler
+from handwriting_line_generation_tpu_torch.device import resolve_device
+from handwriting_line_generation_tpu_torch.init import (
+    init_autoencoder, init_params, init_spectral,
+)
+from handwriting_line_generation_tpu_torch.models.autoencoder import (
+    AE_KINDS, build_encoder,
+)
+from handwriting_line_generation_tpu_torch.models.hw_with_style import (
+    HWWithStyle, _flat_style, pack_style,
+)
+from handwriting_line_generation_tpu_torch.ops.align import viterbi_align
+from handwriting_line_generation_tpu_torch.ops.augment import (
+    apply_augmentation, dequantize_image, fg_to_float, quantize_image_u8,
+)
+from handwriting_line_generation_tpu_torch.ops.ctc import (
+    ctc_loss_fast, mask_frames_to_blank,
+)
+from handwriting_line_generation_tpu_torch.ops.spacing import (
+    counts_from_spaced, onehot,
+)
+from handwriting_line_generation_tpu_torch.training.curriculum import \
+    Curriculum
+from handwriting_line_generation_tpu_torch.training.losses import (
+    disc_hinge_loss, gen_adv_loss,
+)
+from handwriting_line_generation_tpu_torch.training.train_state import (
+    GanTrainState, balance_and_merge, bank_push, bank_sample,
+    create_gan_state, global_norm, multipliers_at,
+)
+from handwriting_line_generation_tpu_torch.utils.checkpoint import \
+    extract_subtree
+
+Draws = Optional[Mapping[str, Any]]
+GROUPS = ("genRecog", "genAdv", "autoGenAdv", "reconRecog")
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def active_stage(schedule: Optional[Dict], iteration: int) -> int:
+    """Start iteration of the schedule stage active at ``iteration``."""
+    best = 0
+    for k in (schedule or {}):
+        if best < int(k) <= iteration:
+            best = int(k)
+    return best
+
+
+def resolve_text_data(path: Optional[str], root: str = REPO_ROOT
+                      ) -> Optional[str]:
+    """The corpus file of the generation-only lessons: ``path`` (the
+    config's ``data.text_data``) resolved against the checkout ``root``;
+    None, the sampler's built-in text, when it is unset or absent (with a
+    warning).  A path that leaves the checkout is refused, so the text the
+    lessons sample never depends on files beside it."""
+    if not path:
+        return None
+    root = os.path.abspath(root)
+    full = os.path.normpath(os.path.join(root, path))
+    if os.path.commonpath([full, root]) != root:
+        raise ValueError(
+            f"data.text_data {path!r} lies outside the checkout {root}: put "
+            "the corpus inside it, or set data.text_data to null for the "
+            "built-in text")
+    if not os.path.exists(full):
+        warnings.warn(f"data.text_data {full} does not exist: the "
+                      "generation-only lessons sample the built-in text")
+        return None
+    return full
+
+
+def _load_model_state(path: str) -> Dict[str, torch.Tensor]:
+    """The model state_dict of a port trainer's checkpoint (``.pt``)."""
+    if not path.endswith(".pt"):
+        path += ".pt"
+    return torch.load(path, map_location="cpu", weights_only=True)["model"]
+
+
+def _grads(outputs, params, grad_outputs, retain_graph: bool
+           ) -> List[torch.Tensor]:
+    """``torch.autograd.grad`` over every parameter, zeros where one does
+    not reach the outputs."""
+    got = torch.autograd.grad(outputs, params, grad_outputs,
+                              retain_graph=retain_graph, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for g, p in zip(got, params)]
+
+
+class GanTrainer:
+    """``GanTrainer(cfg, device=None)``: ``cuda`` unless ``device`` names
+    another; call :meth:`init_state` before stepping."""
+
+    def __init__(self, cfg: Config, device=None):
+        c = cfg
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.charset = get_charset(c.data.charset)
+        c.model.num_class = self.charset.num_class
+        self.curriculum = Curriculum(c.trainer.curriculum)
+        lw = c.trainer.loss_weights
+        self.w = {
+            "auto": lw.get("auto", 0.5),
+            "perceptual": lw.get("perceptual", 0.5),
+            "count": lw.get("count", 0.5),
+            "reconRecog": lw.get("reconRecog", 1e-6),
+            "genRecog": lw.get("genRecog", 1e-4),
+            "discriminator": lw.get("discriminator", 1.0),
+            "generator": lw.get("generator", 1.0),
+            "styleReg": lw.get("styleReg", 1.0),
+        }
+        if c.model.style.vae:
+            raise NotImplementedError(
+                "GAN training of a VAE style (the KL group) is not ported "
+                "yet (ROADMAP.md Queue 1 item 7b)")
+        self.use_perceptual = "perceptual" in (c.trainer.loss or
+                                               {"perceptual": 1})
+        self.no_bg_loss = c.trainer.no_bg_loss
+        il = c.trainer.interpolate_gen_styles
+        if isinstance(il, str) and il.startswith("extra-"):
+            extra = float(il[6:])
+            self.interp_low, self.interp_high = -extra, 1.0 + extra
+        else:
+            self.interp_low, self.interp_high = 0.0, 1.0
+        self.balance = bool(c.trainer.balance_loss)
+        self.gen_spaced_len = min(c.model.max_gen_length,
+                                  max(c.data.label_buckets) * 6)
+        self.text = TextSampler(
+            self.charset, batch_size=c.data.batch_size * c.data.a_batch_size,
+            corpus_path=resolve_text_data(c.data.text_data),
+            max_len=c.trainer.text_data_max_len or max(c.data.label_buckets),
+            seed=c.trainer.seed)
+        self.encoder = None
+        self.state: Optional[GanTrainState] = None
+        self._last_pred = None
+
+    # -- setup -----------------------------------------------------------
+
+    def init_state(self, seed: int = 0, params: Optional[Mapping] = None,
+                   spectral: Optional[Mapping] = None,
+                   encoder_state: Optional[Mapping] = None) -> GanTrainState:
+        """Seeded weights (or flax ``params`` and ``spectral`` trees), the
+        pretrained recognizer of ``model.pretrained_hwr`` (a port
+        ``HWRTrainer`` checkpoint), the frozen perceptual encoder (from
+        ``encoder_state``, else ``trainer.encoder_weights``, a port
+        ``AutoTrainer`` checkpoint, when the file exists, else seeded), the
+        optimizers and a generator seeded with ``seed + 1``."""
+        c = self.cfg
+        model = HWWithStyle(c.model)
+        if params is None:
+            params, spectral = (init_params(c.model, seed),
+                                init_spectral(c.model, seed))
+        model.load_state_dict(convert_params(params, spectral))
+        if c.model.pretrained_hwr:
+            self.load_pretrained_hwr(model, c.model.pretrained_hwr)
+        self.model = model.to(self.device)
+        kind, dt = c.trainer.encoder_type, c.model.torch_compute_dtype()
+        self.encoder = (init_autoencoder(kind, 0, seed + 2, dt).encoder
+                        if kind in AE_KINDS else build_encoder(kind, dt))
+        ep = c.trainer.encoder_weights
+        if encoder_state is not None:
+            self.encoder.load_state_dict(encoder_state)
+        elif ep and os.path.exists(ep if ep.endswith(".pt") else ep + ".pt"):
+            self.load_encoder_weights(ep)
+        self.encoder = self.encoder.to(self.device).requires_grad_(False)
+        self.state = create_gan_state(
+            c, self.model, seed + 1,
+            need_sep_gen_opt=self.curriculum.need_sep_gen_opt,
+            need_sep_style_ex_opt=self.curriculum.need_sep_style_ex_opt)
+        return self.state
+
+    @staticmethod
+    def load_pretrained_hwr(model: HWWithStyle, path: str) -> None:
+        """The recognizer's weights from a port checkpoint: an
+        ``HWRTrainer``'s (the model is the recognizer) or a composite one's
+        ``hwr.*`` entries; its submodules must be the model's."""
+        sd = _load_model_state(path)
+        if any(k.startswith("hwr.") for k in sd):
+            sd = extract_subtree(sd, "hwr")
+        expect = {k.split(".")[0] for k in model.hwr.state_dict()}
+        got = {k.split(".")[0] for k in sd}
+        if expect != got:
+            raise ValueError(
+                f"pretrained_hwr {path}: submodule mismatch (missing "
+                f"{sorted(expect - got)}, extra {sorted(got - expect)})")
+        model.hwr.load_state_dict(sd)
+
+    def load_encoder_weights(self, path: str) -> None:
+        """The perceptual encoder from an ``AutoTrainer`` checkpoint's
+        ``encoder.*`` entries."""
+        self.encoder.load_state_dict(
+            extract_subtree(_load_model_state(path), "encoder"))
+
+    # -- shared pieces -----------------------------------------------------
+
+    def _tensor(self, x) -> Optional[torch.Tensor]:
+        return None if x is None else torch.as_tensor(x).to(self.device)
+
+    def _perceptual(self, image: torch.Tensor, recon: torch.Tensor
+                    ) -> torch.Tensor:
+        """L1 between the frozen encoder's outputs (bottleneck and mid) of
+        the image and of its reconstruction, two encoder applies."""
+        bo, mo = self.encoder(image.permute(0, 3, 1, 2))
+        br, mr = self.encoder(recon.permute(0, 3, 1, 2))
+        return ((bo.float() - br.float()).abs().mean()
+                + (mo.float() - mr.float()).abs().mean())
+
+    def _ctc(self, logp, label, lens, weight):
+        return weight * ctc_loss_fast(logp, label, lens)
+
+    def _cond_style(self, style: torch.Tensor) -> Dict:
+        """The discriminator's ``style`` keyword: the style's first
+        ``style_dim`` entries for a ``cond`` discriminator, else none."""
+        if not self.cfg.model.discriminator.cond:
+            return {}
+        return {"style": style[:, :self.cfg.model.style.style_dim].detach()}
+
+    def _frames(self, width, wscale, W: int) -> torch.Tensor:
+        return torch.clamp(torch.ceil(width.float() * wscale / 4.0).long(),
+                           1, W // 4)
+
+    def _bank_style(self, B: int, draws: Draws) -> torch.Tensor:
+        s = self.state
+        return bank_sample(s.style_bank, s.bank_count, B, self.interp_low,
+                           self.interp_high, self.cfg.model.packed_style_dim(),
+                           s.generator, (draws or {}).get("bank"))
+
+    def _generate(self, label, lens, style, spaced_len: int, draws: Draws):
+        d = draws or {}
+        return self.model.generate(label, lens, style, spaced_len=spaced_len,
+                                   generator=self.state.generator,
+                                   normals=d.get("normals"),
+                                   noise=d.get("noise"))
+
+    # -- lesson steps --------------------------------------------------------
+
+    def step_count(self, image, label, lens, width, a_batch: int,
+                   spaced_label=None, draws: Draws = None) -> Dict:
+        """Lesson ``["count"]``.  ``spaced_label``: a precomputed alignment
+        in place of ``viterbi_align``."""
+        s, c = self.state, self.cfg
+        image, label, lens, width = map(self._tensor,
+                                        (image, label, lens, width))
+        image = dequantize_image(image, width)
+        image, _, wscale = apply_augmentation(c.data.augmentation, image,
+                                              None, s.generator)
+        frames = self._frames(width, wscale, image.shape[2])
+        with torch.no_grad():
+            pred = mask_frames_to_blank(self.model.recognize(image), frames)
+        style, _ = self.model.extract_style(image, a_batch, pred)
+        style = _flat_style(style)
+        if c.trainer.style_detach:
+            style = style.detach()
+        aligned = (self._tensor(spaced_label) if spaced_label is not None
+                   else viterbi_align(pred, label, lens))
+        gt_counts, n_rec = counts_from_spaced(aligned, label.shape[1])
+        counts = self.model.spacer(onehot(label, c.model.num_class), style)
+        mask = (torch.arange(label.shape[1], device=self.device)[None, :]
+                < torch.minimum(n_rec, lens.long())[:, None])[..., None]
+        loss = self.w["count"] * ((torch.where(mask, counts, 0.0)
+                                   - torch.where(mask, gt_counts, 0.0)) ** 2
+                                  ).mean()
+        grads = _grads(loss, s.params, None, retain_graph=False)
+        s.opt_main.step(grads)
+        s.step += 1
+        return {"countLoss": loss.detach(), "grads": grads}
+
+    def step_gen_nostep(self, label, lens, spaced_len: int,
+                        draws: Draws = None) -> Dict:
+        """Lesson ``["no-step", "gen"]``: add the genRecog and genAdv
+        gradient groups to the saved ones; no update."""
+        s, c = self.state, self.cfg
+        label, lens = self._tensor(label), self._tensor(lens)
+        style_gen = self._bank_style(label.shape[0], draws)
+        img, aux = self._generate(label, lens, style_gen, spaced_len, draws)
+        frames = torch.clamp(aux["total_len"], 1, spaced_len)
+        im = img.detach().requires_grad_(True)
+        recog_params = [] if c.model.hwr_frozen else s.params
+        logp = mask_frames_to_blank(self.model.recognize(im), frames)
+        recog_l = self._ctc(logp, label, lens, self.w["genRecog"])
+        ct_recog, *recog_p = torch.autograd.grad(
+            recog_l, [im] + recog_params, allow_unused=True)
+        adv_l = self.w["generator"] * gen_adv_loss(
+            self.model.discriminate(im, **self._cond_style(style_gen)))
+        ct_adv, = torch.autograd.grad(adv_l, im)
+        recog_g = _grads(img, s.params, ct_recog, retain_graph=True)
+        adv_g = _grads(img, s.params, ct_adv, retain_graph=False)
+        for i, g in enumerate(recog_p):
+            if g is not None:
+                recog_g[i] += g
+        torch._foreach_add_(s.saved_recog, recog_g)
+        torch._foreach_add_(s.saved_adv, adv_g)
+        s.have_saved = True
+        s.step += 1
+        return {"genRecogLoss": recog_l.detach(),
+                "generatorLoss": adv_l.detach(),
+                "recog_g": recog_g, "adv_g": adv_g}
+
+    def step_auto(self, image, label, lens, fg_mask, width, a_batch: int,
+                  opt_kind: str = "main", bal_stage: int = 0,
+                  spaced_label=None, draws: Draws = None) -> Dict:
+        """Lesson ``["auto", "auto-gen"]``: main, adversarial and reconRecog
+        groups, balance-merged with the saved ones, into the ``opt_kind``
+        optimizer (``main``, ``gen_only`` for ``auto-style`` lessons,
+        ``style_ex`` for ``style-ex-only`` ones)."""
+        s, c = self.state, self.cfg
+        image, label, lens, width = map(self._tensor,
+                                        (image, label, lens, width))
+        image = dequantize_image(image, width)
+        fg_mask = fg_to_float(self._tensor(fg_mask))
+        image, fg_mask, wscale = apply_augmentation(
+            c.data.augmentation, image, fg_mask, s.generator)
+        frames = self._frames(width, wscale, image.shape[2])
+        recon, aux = self.model.autoencode(
+            image, label, lens, a_batch,
+            spaced_label=self._tensor(spaced_label), frame_lengths=frames,
+            noise=(draws or {}).get("noise"), generator=s.generator)
+        r = recon.detach().requires_grad_(True)
+        # main group: fg-masked L1 + perceptual
+        if self.no_bg_loss and fg_mask is not None:
+            auto = (r * fg_mask - image * fg_mask).abs().mean()
+        else:
+            auto = (r - image).abs().mean()
+        main_l = self.w["auto"] * auto
+        logs = {"autoLoss": auto.detach()}
+        if self.use_perceptual:
+            perc = self._perceptual(image, r)
+            main_l = main_l + self.w["perceptual"] * perc
+            logs["perceptualLoss"] = perc.detach()
+        ct_main, = torch.autograd.grad(main_l, r)
+        adv_l = self.w["generator"] * gen_adv_loss(self.model.discriminate(
+            r, **self._cond_style(_flat_style(aux["style"]))))
+        ct_adv, = torch.autograd.grad(adv_l, r)
+        recog_params = [] if c.model.hwr_frozen else s.params
+        logp = mask_frames_to_blank(self.model.recognize(r), frames)
+        recog_l = self._ctc(logp, label, lens, self.w["reconRecog"])
+        ct_recog, *recog_p = torch.autograd.grad(
+            recog_l, [r] + recog_params, allow_unused=True)
+        main_g = _grads(recon, s.params, ct_main, retain_graph=True)
+        if self.balance:
+            adv_g = _grads(recon, s.params, ct_adv, retain_graph=True)
+            recog_g = _grads(recon, s.params, ct_recog, retain_graph=False)
+            for i, g in enumerate(recog_p):
+                if g is not None:
+                    recog_g[i] += g
+            mults = (multipliers_at(c.trainer.balance_var_x, bal_stage)
+                     + [1.0] * 4)[:4]
+            groups = [s.saved_recog, s.saved_adv, adv_g, recog_g]
+            merged = balance_and_merge(main_g, groups, mults)
+            for name, g in zip(GROUPS, groups):
+                logs[f"gnorm_{name}"] = global_norm(g)
+            logs["gnorm_main"] = global_norm(main_g)
+            logs["gnorm_merged"] = global_norm(merged)
+        else:
+            both_g = _grads(recon, s.params, ct_adv + ct_recog,
+                            retain_graph=False)
+            for i, g in enumerate(recog_p):
+                if g is not None:
+                    both_g[i] += g
+            merged = [m + b + ra + rr for m, b, ra, rr in
+                      zip(main_g, both_g, s.saved_recog, s.saved_adv)]
+        opt = {"main": s.opt_main, "gen_only": s.opt_gen_only,
+               "style_ex": s.opt_style_ex}[opt_kind]
+        out = {**logs, "autoGenLoss": adv_l.detach(),
+               "reconRecogLoss": recog_l.detach(),
+               "pred_am": aux["pred"].argmax(-1),
+               "main_g": main_g, "merged": merged}
+        if self.balance:
+            out.update(adv_g=adv_g, recog_g=recog_g)
+        opt.step(merged)
+        styles = pack_style(aux["style"])[::a_batch]
+        s.style_bank, s.bank_count = bank_push(s.style_bank, s.bank_count,
+                                               styles)
+        s.clear_saved()
+        s.step += 1
+        return out
+
+    def step_disc(self, image, label, lens, width=None, a_batch: int = 1,
+                  style_gen=None, draws: Draws = None) -> Dict:
+        """Lesson ``["disc"]``: hinge on real against generated lines, the
+        discriminator's update.  ``style_gen``: packed styles for the fake
+        branch (a precomputed bank's rows) in place of a bank draw."""
+        s, c = self.state, self.cfg
+        image, label, lens, width = map(self._tensor,
+                                        (image, label, lens, width))
+        image = dequantize_image(image, width)
+        image, _, _ = apply_augmentation(c.data.augmentation, image, None,
+                                         s.generator)
+        B = label.shape[0]
+        style_gen = (self._bank_style(B, draws) if style_gen is None
+                     else self._tensor(style_gen).float())
+        with torch.no_grad():
+            fake, _ = self._generate(label, lens, style_gen,
+                                     image.shape[2] // 4, draws)
+            kwr = {}
+            if c.model.discriminator.cond:
+                style_real, _ = self.model.extract_style(image, a_batch)
+                kwr = {"style": _flat_style(style_real)}
+        real_s = self.model.discriminate(image, **kwr)
+        fake_s = self.model.discriminate(fake, **self._cond_style(style_gen))
+        loss = self.w["discriminator"] * disc_hinge_loss(real_s, fake_s)
+        grads = _grads(loss, s.params, None, retain_graph=False)
+        s.opt_disc.step(grads)
+        s.step += 1
+        return {"discriminatorLoss": loss.detach(), "grads": grads}
+
+    # -- lessons -------------------------------------------------------------
+
+    def run_lesson(self, lesson: List[str], data_iter: Iterator[Dict],
+                   iteration: int = 0, draws: Draws = None) -> Dict:
+        """One lesson: a text batch from the sampler for a generation-only
+        lesson, else the next batch dict of ``data_iter`` (``image`` u8 or
+        normalized float ``[B, H, W, 1]``, ``label``, ``label_lengths``,
+        ``width``, ``gt``, and optionally ``a_batch_size``, ``fg_mask``,
+        ``spaced_label``, ``style``).  Returns the step's losses (floats
+        stay on the device)."""
+        if not lesson:
+            raise ValueError(
+                "curriculum produced no lesson for this iteration: the "
+                "first stage starts later than iteration 0")
+        c = self.cfg
+        keep = lambda out: {k: v for k, v in out.items()
+                            if not isinstance(v, list)}
+        if all(l[:3] == "gen" or l == "no-step" for l in lesson):
+            tb = self.text.get_batch(label_len=max(c.data.label_buckets))
+            return keep(self.step_gen_nostep(tb["label"],
+                                             tb["label_lengths"],
+                                             self.gen_spaced_len, draws))
+        batch = next(data_iter)
+        if "$UNKOWN$" in batch.get("gt", []):
+            raise NotImplementedError(
+                "pseudo-labels of $UNKOWN$ lines are not ported yet "
+                "(ROADMAP.md Queue 1 item 7b)")
+        image = batch["image"]
+        if (c.data.u8_transfer and isinstance(image, np.ndarray)
+                and image.dtype != np.uint8):
+            image = quantize_image_u8(image)
+        args = (image, batch["label"], batch["label_lengths"])
+        a_batch = batch.get("a_batch_size", 1)
+        spaced = batch.get("spaced_label")
+        if spaced is not None and c.data.identity_spaced and "auto" in lesson \
+                and 4 * batch["label"].shape[1] != batch["image"].shape[2]:
+            raise ValueError(
+                "identity_spaced + auto lesson needs 4*label_len == image "
+                f"width (got 4*{batch['label'].shape[1]} vs "
+                f"{batch['image'].shape[2]})")
+        if "count" in lesson:
+            return keep(self.step_count(*args, batch["width"], a_batch,
+                                        spaced, draws))
+        if "auto" in lesson:
+            fg = batch.get("fg_mask")
+            if fg is not None and c.data.u8_transfer:
+                fg = fg > 0.5                 # numpy or tensor, as bool
+            opt_kind = ("gen_only" if "auto-style" in lesson else
+                        "style_ex" if "style-ex-only" in lesson else "main")
+            out = self.step_auto(
+                *args, fg, batch["width"], a_batch, opt_kind,
+                active_stage(c.trainer.balance_var_x, iteration), spaced,
+                draws)
+            self._last_pred = (out.pop("pred_am"), list(batch["gt"]))
+            return keep(out)
+        if "disc" in lesson:
+            style_gen = None
+            if c.trainer.use_style_cache:
+                if batch.get("style") is None:
+                    raise ValueError(
+                        "trainer.use_style_cache is on but the batch has no "
+                        "'style' rows")
+                style_gen = np.asarray(batch["style"], np.float32)
+            return keep(self.step_disc(*args, batch["width"], a_batch,
+                                       style_gen, draws))
+        raise ValueError(f"no step for lesson {lesson}")

@@ -1,17 +1,39 @@
-"""Learning-rate schedules of ``handwriting_line_generation_tpu/training/
-train_state.py`` (``make_lr_schedule``), as functions of the 0-based update
-count, which is what optax passes its schedule.  :func:`make_optimizer`
-pairs one with ``torch.optim.Adam`` through ``LambdaLR``: optax's Adam and
-torch's compute the same update (bias-corrected moments, ``eps`` added to
-the square root)."""
+"""Optimizers and train state of the port's trainers.
+
+Counterpart of ``handwriting_line_generation_tpu/training/train_state.py``:
+
+* :func:`make_lr_schedule` — the reference's learning-rate schedules, as
+  functions of the 0-based update count, which is what optax passes its
+  schedule; :func:`make_optimizer` pairs one with ``torch.optim.Adam``
+  through ``LambdaLR``.  optax's Adam and torch's compute the same update
+  (bias-corrected moments, ``eps`` added to the square root).
+* The GAN's parameter partitions (main / disc / frozen, by name) and its
+  two optimizers, :class:`PartitionAdam`: an element-value
+  clip at ``±grad_clip``, then Adam over the optimizer's own partitions
+  only.  As optax does for every leaf of its partition, each update takes a
+  gradient for every one of them: a parameter that got none gets zeros,
+  so its moments decay and its step count advances (``torch.optim.Adam``
+  would skip a parameter whose ``.grad`` is None).
+* :func:`balance_and_merge` and :func:`multipliers_at` — the saved-gradient
+  balancing (arXiv:1903.00277): each saved group's tensor scaled by
+  ``x * mean|D| / mean|R|`` before it is added to the dominant gradient.
+* The style bank (:func:`bank_push`, :func:`bank_sample`) and
+  :class:`GanTrainState`.
+
+Gradients travel as lists aligned with ``model.named_parameters()``: one
+tensor per flax leaf, the same set.
+"""
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, Tuple
+from dataclasses import dataclass
+from typing import (Callable, Dict, Iterable, List, Optional, Sequence,
+                    Tuple)
 
 import torch
+from torch import nn
 
-from handwriting_line_generation_tpu_torch.config import OptimConfig
+from handwriting_line_generation_tpu_torch.config import Config, OptimConfig
 
 
 def make_lr_schedule(kind, base_lr: float, total_iters: int,
@@ -77,3 +99,250 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], cfg: OptimConfig,
                            eps=1e-8)
     return opt, torch.optim.lr_scheduler.LambdaLR(
         opt, lambda step: sched(step) / cfg.lr)
+
+
+# ---------------------------------------------------------------------------
+# GAN: partitions and optimizers
+# ---------------------------------------------------------------------------
+
+PARTITIONS = ("main", "disc", "frozen")
+
+
+def partition_label(name: str, *, hwr_frozen: bool) -> str:
+    """Group of one parameter by its name (``/``- or ``.``-joined path):
+    ``disc`` for the discriminator, ``frozen`` for a frozen recognizer,
+    else ``main``."""
+    if "discriminator" in name:
+        return "disc"
+    if "hwr" in name and hwr_frozen:
+        return "frozen"
+    return "main"
+
+
+def partition_params(names: Iterable[str], *, hwr_frozen: bool
+                     ) -> List[str]:
+    """The partition of each parameter name, in order."""
+    return [partition_label(n, hwr_frozen=hwr_frozen) for n in names]
+
+
+class PartitionAdam:
+    """``optax.chain(clip(grad_clip), multi_transform(...))`` for one
+    optimizer over a model's parameter list: Adam, at ``cfg.lr`` times the
+    partition's entry of ``scales``, steps the parameters whose label is in
+    ``scales``; the rest get no update.  :meth:`step` takes the gradients of
+    every parameter (None counts as zeros)."""
+
+    def __init__(self, params: Sequence[nn.Parameter], labels: Sequence[str],
+                 scales: Dict[str, float], cfg: OptimConfig,
+                 grad_clip: float, total_iters: int):
+        if cfg.kind != "adam" or cfg.weight_decay:
+            raise NotImplementedError(f"optimizer {cfg.kind!r} with weight "
+                                      f"decay {cfg.weight_decay} is not "
+                                      f"ported")
+        self.params = list(params)
+        self.grad_clip = grad_clip
+        self.index = [i for i, l in enumerate(labels) if l in scales]
+        groups = [{"params": [self.params[i] for i in self.index
+                              if labels[i] == part], "lr": cfg.lr * scale}
+                  for part, scale in scales.items()]
+        self.optimizer = torch.optim.Adam(
+            [g for g in groups if g["params"]], lr=cfg.lr,
+            betas=tuple(cfg.betas), eps=1e-8)
+        sched = make_lr_schedule(cfg.lr_schedule, cfg.lr, total_iters,
+                                 cfg.warmup_steps, cfg.cycle_size)
+        self.scheduler = torch.optim.lr_scheduler.LambdaLR(
+            self.optimizer, lambda step: sched(step) / cfg.lr)
+
+    def step(self, grads: Sequence[Optional[torch.Tensor]]) -> None:
+        for i in self.index:
+            p, g = self.params[i], grads[i]
+            g = torch.zeros_like(p) if g is None else g.detach()
+            if self.grad_clip:
+                g = torch.clamp(g, -self.grad_clip, self.grad_clip)
+            p.grad = g
+        self.optimizer.step()
+        self.scheduler.step()
+        for i in self.index:
+            self.params[i].grad = None
+
+
+def make_optimizers(params: Sequence[nn.Parameter], labels: Sequence[str],
+                    opt_cfg: OptimConfig, disc_cfg: OptimConfig,
+                    grad_clip: float = 2.0, total_iters: int = 175_000
+                    ) -> Tuple[PartitionAdam, PartitionAdam]:
+    """(main, disc): main steps ``main``, disc steps ``disc``; ``frozen``
+    is never stepped."""
+    main = PartitionAdam(params, labels, {"main": 1.0}, opt_cfg, grad_clip,
+                         total_iters)
+    disc = PartitionAdam(params, labels, {"disc": 1.0}, disc_cfg, grad_clip,
+                         total_iters)
+    return main, disc
+
+
+def make_sep_optimizers(params: Sequence[nn.Parameter], names: Sequence[str],
+                        opt_cfg: OptimConfig, grad_clip: float = 2.0,
+                        total_iters: int = 175_000
+                        ) -> Tuple[PartitionAdam, PartitionAdam]:
+    """(generator-only, style-extractor-only) optimizers for curricula with
+    ``auto-style`` / ``style-ex-only`` lessons, at a constant rate (the JAX
+    package builds them without the schedule)."""
+    const = OptimConfig(kind=opt_cfg.kind, lr=opt_cfg.lr,
+                        betas=opt_cfg.betas,
+                        weight_decay=opt_cfg.weight_decay)
+
+    def only(prefix):
+        labels = ["on" if prefix in n else "off" for n in names]
+        return PartitionAdam(params, labels, {"on": 1.0}, const, grad_clip,
+                             total_iters)
+    return only("generator"), only("style_extractor")
+
+
+# ---------------------------------------------------------------------------
+# GAN: gradient balancing
+# ---------------------------------------------------------------------------
+
+
+def _abs_means(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``mean|g|`` of each tensor, stacked: ``[n]`` float32."""
+    norms = torch._foreach_norm([g.float() for g in grads], 1)
+    numel = torch.tensor([g.numel() for g in grads], dtype=torch.float32,
+                         device=grads[0].device)
+    return torch.stack(norms) / numel
+
+
+def balance_and_merge(d_grads: Sequence[torch.Tensor],
+                      saved: Sequence[Sequence[torch.Tensor]],
+                      multipliers: Sequence[float]) -> List[torch.Tensor]:
+    """``D + sum_i x_i * R_i * (mean|D| / mean|R_i|)``, tensor by tensor.
+
+    A tensor whose D is all zero takes the mean of the non-zero ``mean|D|``
+    in its place; a saved tensor that is all zero adds nothing."""
+    ad = _abs_means(d_grads)
+    nz = ad != 0
+    nz_mean = torch.where(nz, ad, 0.0).sum() / torch.clamp(nz.sum(), min=1)
+    ad = torch.where(nz, ad, nz_mean)
+    out = [g.clone() for g in d_grads]
+    for x, r_grads in zip(multipliers, saved):
+        ar = _abs_means(r_grads)
+        scale = torch.where(ar != 0, ad / torch.clamp(ar, min=1e-30), 0.0)
+        for i, (r, s) in enumerate(zip(r_grads, scale.unbind())):
+            out[i] += x * r * s
+    return out
+
+
+def multipliers_at(balance_var_x: Dict[str, List[float]],
+                   iteration: int) -> List[float]:
+    """The schedule entry with the latest start ``<= iteration``."""
+    best_start, best = -1, [1.0]
+    for k, v in balance_var_x.items():
+        if int(k) <= iteration and int(k) > best_start:
+            best_start = int(k)
+            best = v if isinstance(v, list) else [v]
+    return best
+
+
+def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``sqrt(sum g²)`` over every tensor (``optax.global_norm``)."""
+    return torch.linalg.vector_norm(torch.stack(
+        torch._foreach_norm([g.float() for g in grads], 2)))
+
+
+# ---------------------------------------------------------------------------
+# GAN: style bank and state
+# ---------------------------------------------------------------------------
+
+
+def bank_push(bank: torch.Tensor, count: int, styles: torch.Tensor
+              ) -> Tuple[torch.Tensor, int]:
+    """Circular-buffer push of per-author styles: rows ``count ..
+    count + n - 1`` (mod the bank size) of ``bank``, in place."""
+    n = styles.shape[0]
+    idx = torch.arange(count, count + n, device=bank.device) % bank.shape[0]
+    bank[idx] = styles.detach().to(bank.dtype)
+    return bank, count + n
+
+
+def bank_sample(bank: torch.Tensor, count: int, batch_size: int,
+                low: float, high: float, style_dim: int,
+                generator: Optional[torch.Generator] = None,
+                draws: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]] = None
+                ) -> torch.Tensor:
+    """Interpolated style draw ``[B, style_dim]``: ``a * mix + b * (1 -
+    mix)`` of two random rows among the bank's first ``min(count, size)``,
+    ``mix`` uniform in ``[low, high]``; N(0, 1) while the bank is empty.
+    ``draws``: ``(idx [B, 2] int, mix [B, 1], normal [B, style_dim])``,
+    which tests inject; else they come from ``generator``."""
+    dev = bank.device
+    if draws is None:
+        limit = min(max(count, 1), bank.shape[0])
+        draws = (torch.randint(0, limit, (batch_size, 2),
+                               generator=generator, device=dev),
+                 low + (high - low) * torch.rand(
+                     (batch_size, 1), generator=generator, device=dev),
+                 torch.randn((batch_size, style_dim), generator=generator,
+                             device=dev))
+    idx, mix, normal = (torch.as_tensor(d, device=dev) for d in draws)
+    if count == 0:
+        return normal.float()
+    pair = bank[idx.long()]                                   # [B, 2, D]
+    return pair[:, 0] * mix + pair[:, 1] * (1 - mix)
+
+
+@dataclass
+class GanTrainState:
+    """What the GAN's lesson steps thread: the parameters (and the
+    discriminator's ``u`` buffers) live in ``model``; ``params`` and
+    ``labels`` follow ``model.named_parameters()``."""
+    step: int
+    model: nn.Module
+    names: List[str]
+    params: List[nn.Parameter]
+    labels: List[str]
+    opt_main: PartitionAdam
+    opt_disc: PartitionAdam
+    # no-step saved gradient groups (genRecog, genAdv) and their validity
+    saved_recog: List[torch.Tensor]
+    saved_adv: List[torch.Tensor]
+    have_saved: bool
+    style_bank: torch.Tensor                  # [prev_style_size, packed dim]
+    bank_count: int
+    generator: torch.Generator                # every random draw of a step
+    opt_gen_only: Optional[PartitionAdam] = None
+    opt_style_ex: Optional[PartitionAdam] = None
+
+    def clear_saved(self) -> None:
+        for g in self.saved_recog + self.saved_adv:
+            g.zero_()
+        self.have_saved = False
+
+
+def create_gan_state(cfg: Config, model: nn.Module, seed: int,
+                     need_sep_gen_opt: bool = False,
+                     need_sep_style_ex_opt: bool = False) -> GanTrainState:
+    """Partitions, both optimizers (and the separate ones a curriculum asks
+    for), zeroed saved groups, an empty style bank on the model's device
+    and a generator there seeded with ``seed``."""
+    names, params = zip(*model.named_parameters())
+    names, params = list(names), list(params)
+    labels = partition_params(names, hwr_frozen=cfg.model.hwr_frozen)
+    t = cfg.trainer
+    main, disc = make_optimizers(params, labels, cfg.optimizer,
+                                 cfg.optimizer_discriminator, t.grad_clip,
+                                 t.iterations)
+    gen_only = style_ex = None
+    if need_sep_gen_opt or need_sep_style_ex_opt:
+        gen_only, style_ex = make_sep_optimizers(params, names,
+                                                 cfg.optimizer, t.grad_clip,
+                                                 t.iterations)
+    dev = params[0].device
+    zeros = lambda: [torch.zeros_like(p) for p in params]
+    return GanTrainState(
+        step=0, model=model, names=names, params=params, labels=labels,
+        opt_main=main, opt_disc=disc, saved_recog=zeros(), saved_adv=zeros(),
+        have_saved=False,
+        style_bank=torch.zeros((t.prev_style_size,
+                                cfg.model.packed_style_dim()), device=dev),
+        bank_count=0, generator=torch.Generator(dev).manual_seed(seed),
+        opt_gen_only=gen_only if need_sep_gen_opt else None,
+        opt_style_ex=style_ex if need_sep_style_ex_opt else None)

@@ -111,11 +111,12 @@ def test_gen_epilogue_rejects_bad_inputs(cuda):
 
 # CTC kernel vs the plain recursion on the card, both float32.  The NLLs
 # agree to a few ulps (expf/logf against torch's exp/log).  The kernel's
-# gradient is exp(alpha + beta - ll), a difference of log-probabilities of
-# magnitude |ll| ~ 1e3 at T = 256 that float32 carries to ~1e-4 after T
-# steps of rounding, so each entry has that relative error; the plain
-# version's autograd never forms the difference.  The JAX package holds its
-# own Pallas kernel to its scan within rtol 1e-3 for the same reason.
+# gradient is exp(alpha + beta - z_t), a difference of log-probabilities of
+# magnitude ~1e3 at T = 256 that float32 carries to ~1e-4 after T steps of
+# rounding (z_t, the row's own log-sum-exp, cancels what the row shares),
+# so each entry has that relative error; the plain version's autograd
+# never forms the difference.  The JAX package holds its own Pallas kernel
+# to its scan within rtol 1e-3 for the same reason.
 CTC_NLL_TOL = dict(rtol=1e-5, atol=1e-4)
 CTC_GRAD_TOL = dict(rtol=2e-3, atol=1e-5)
 
@@ -346,3 +347,166 @@ def test_auto_trainer_step_kernel_matches_plain(cuda):
     for a, b in zip(g_k, g_p):
         torch.testing.assert_close(a, b, rtol=0.0,
                                    atol=1e-3 * b.abs().max().item())
+
+
+# -- the GAN path: the CTC kernel at its buckets, the discriminator ---------
+
+# genRecog on a generated line of min(500, 6 x 96) frames with labels at 96;
+# reconRecog at T = W/4 = 256 with labels at 72; the GAN's B = 2 x 2
+GAN_CTC_SHAPES = [(500, 96), (256, 72)]
+
+
+@pytest.mark.parametrize("T,L", GAN_CTC_SHAPES)
+def test_ctc_matches_plain_at_gan_buckets(cuda, T, L):
+    lp, labels, lens, frames = _ctc_inputs(cuda, 4, T, 80, L, seed=T)
+    lens[2] = L                                   # cannot align in L // 2
+    labels[2] = torch.randint(1, 80, (L,), device=cuda, dtype=torch.int32)
+    frames[2] = L // 2
+    (nll_k, g_k), (nll_p, g_p) = _ctc_both(lp, labels, lens, frames)
+    torch.testing.assert_close(nll_k, nll_p, **CTC_NLL_TOL)
+    torch.testing.assert_close(g_k, g_p, **CTC_GRAD_TOL)
+    assert nll_k[2].item() == 0.0 and (g_k[2] == 0).all()
+
+
+@pytest.mark.parametrize("T,L", GAN_CTC_SHAPES)
+def test_ctc_gradient_close_to_float64(cuda, T, L):
+    """The kernel's gradient against the plain recursion in float64, per
+    sample, relative to the sample's largest entry: within 5e-4 (each
+    gradient row is normalized by its own log-sum-exp; before that the
+    error common to a row reached 2e-3 at T = 500)."""
+    lp, labels, lens, frames = _ctc_inputs(cuda, 4, T, 80, L, seed=T)
+    (_, g_k), _ = _ctc_both(lp, labels, lens, frames)
+    _, g_64 = _ctc_both_f64(lp, labels, lens, frames)
+    err = ((g_k.double() - g_64).abs().amax((1, 2))
+           / g_64.abs().amax((1, 2)).clamp(min=1e-30))
+    print(f"ctc ({T}, {L}): kernel gradient vs float64, per sample "
+          + " ".join(f"{e:.2e}" for e in err.tolist()))
+    assert (err <= 5e-4).all(), err
+
+
+def _ctc_both_f64(lp, labels, lens, frames):
+    """(nll, grad) of the plain recursion in float64, as ``_ctc_both``."""
+    x = lp.double().requires_grad_(True)
+    T = lp.shape[1]
+    nll = ctc.ctc_loss(ctc.mask_frames_to_blank(x, frames), labels,
+                       torch.full_like(lens, T), lens, reduction="none")
+    (nll / torch.clamp(lens, min=1)).mean().backward()
+    return nll.detach(), x.grad
+
+
+def test_paper_discriminator_forward_backward(cuda):
+    """The paper discriminator (dim 64, medium and low heads) at B = 4,
+    64 x 1024: scores and parameter gradients on the card against the CPU
+    (TF32 off), and its forward + backward time by CUDA events."""
+    from handwriting_line_generation_tpu_torch.config import ModelConfig
+    from handwriting_line_generation_tpu_torch.init import init_model
+    from handwriting_line_generation_tpu_torch.trace_train import event_ms
+    cpu = init_model(ModelConfig(), seed=0).discriminator
+    dev = init_model(ModelConfig(), seed=0).discriminator.to(cuda)
+    g = torch.Generator().manual_seed(0)
+    real, fake = (torch.tanh(torch.randn((4, 64, 1024, 1), generator=g))
+                  for _ in range(2))
+    out = []
+    for d, x, y in ((cpu, real, fake), (dev, real.to(cuda), fake.to(cuda))):
+        r, f = d(x), d(y)
+        loss = sum(torch.relu(1 - a).mean() + torch.relu(1 + b).mean()
+                   for a, b in zip(r, f))
+        grads = torch.autograd.grad(loss, list(d.parameters()))
+        out.append(([s.detach().cpu() for s in r + f],
+                    [gr.cpu() for gr in grads]))
+    assert [tuple(s.shape) for s in out[1][0][:2]] == [(4, 128), (4, 32)]
+    for a, b in zip(out[1][0], out[0][0]):
+        torch.testing.assert_close(a, b, atol=1e-3, rtol=0.0)
+    for a, b in zip(out[1][1], out[0][1]):
+        torch.testing.assert_close(a, b, rtol=0.0,
+                                   atol=1e-3 * b.abs().max().item())
+    params = list(dev.parameters())
+    x, y = real.to(cuda), fake.to(cuda)
+
+    def step():
+        loss = sum(torch.relu(1 - a).mean() + torch.relu(1 + b).mean()
+                   for a, b in zip(dev(x), dev(y)))
+        torch.autograd.grad(loss, params)
+    ms = event_ms(step)
+    print(f"paper discriminator forward + backward (real + fake), B = 4, "
+          f"64 x 1024, f32: {ms:.3f} ms on {torch.cuda.get_device_name(0)}")
+    assert 0.0 < ms < 1e4
+
+
+def _tiny_gan_trainer(cuda):
+    from handwriting_line_generation_tpu_torch.config import (
+        Config, DataConfig, DiscriminatorConfig, GeneratorConfig, HWRConfig,
+        ModelConfig, SpacerConfig, StyleConfig, TrainerConfig,
+    )
+    from handwriting_line_generation_tpu_torch.training.gan_trainer import \
+        GanTrainer
+    cfg = Config(name="t")
+    cfg.data = DataConfig(batch_size=2, a_batch_size=2,
+                          label_buckets=(12,), augmentation=None)
+    cfg.model = ModelConfig(
+        hwr=HWRConfig(kind="cnn_only", norm="group"),
+        style=StyleConfig(style_dim=32, dim=16, char_dim=16,
+                          char_capacity=4),
+        generator=GeneratorConfig(dim=64),
+        discriminator=DiscriminatorConfig(dim=16), spacer=SpacerConfig(dim=32))
+    cfg.trainer = TrainerConfig(loss_weights={"reconRecog": 1e-6,
+                                              "genRecog": 1e-4})
+    tr = GanTrainer(cfg, device=cuda)
+    tr.init_state(seed=0)
+    return tr
+
+
+def test_gan_lessons_kernel_match_plain(cuda, monkeypatch):
+    """One gen and one auto lesson of two identically seeded trainers
+    (B = 4, 64 x 192) with deterministic algorithms, one through the
+    kernel, one through the plain CTC:
+    the losses, and the saved, fresh and merged gradient groups within
+    1e-3 of each tensor's largest entry."""
+    from handwriting_line_generation_tpu_torch.training import \
+        gan_trainer as gt
+    g = torch.Generator(cuda).manual_seed(2)
+    B, W, L = 4, 192, 12
+    batch = dict(
+        image=torch.randint(0, 256, (B, 64, W, 1), generator=g, device=cuda,
+                            dtype=torch.uint8),
+        label=torch.randint(1, 80, (B, L), generator=g, device=cuda,
+                            dtype=torch.int32),
+        label_lengths=torch.tensor([12, 9, 5, 3], device=cuda,
+                                   dtype=torch.int32),
+        width=torch.tensor([192, 160, 128, 96], device=cuda,
+                           dtype=torch.int32))
+    fg = torch.rand((B, 64, W, 1), generator=g, device=cuda) > 0.5
+
+    def plain(logp, label, lens):
+        return ctc.ctc_loss(logp, label, torch.full(
+            (logp.shape[0],), logp.shape[1], device=logp.device), lens)
+    outs = []
+    # deterministic cuDNN algorithms: the CTC is all that differs
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for route in (gt.ctc_loss_fast, plain):
+            monkeypatch.setattr(gt, "ctc_loss_fast", route)
+            tr = _tiny_gan_trainer(cuda)
+            before = ctc.ctc_loss_cuda.launches
+            text = tr.text.get_batch(label_len=L)
+            gen = tr.step_gen_nostep(text["label"], text["label_lengths"],
+                                     tr.gen_spaced_len)
+            auto = tr.step_auto(batch["image"], batch["label"],
+                                batch["label_lengths"], fg, batch["width"], 2)
+            outs.append((gen, auto, ctc.ctc_loss_cuda.launches - before))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert [o[2] for o in outs] == [2, 0]
+    for k_out, p_out, keys in ((outs[0][0], outs[1][0],
+                                ("recog_g", "adv_g")),
+                               (outs[0][1], outs[1][1],
+                                ("main_g", "adv_g", "recog_g", "merged"))):
+        for k, v in p_out.items():
+            if k.endswith("Loss"):
+                torch.testing.assert_close(k_out[k], v, rtol=1e-5, atol=0.0)
+        for key in keys:
+            for name, a, b in zip(tr.state.names, k_out[key], p_out[key]):
+                torch.testing.assert_close(
+                    a, b, rtol=0.0, atol=1e-3 * b.abs().max().item(),
+                    msg=lambda m: f"{key} {name}: {m}")
