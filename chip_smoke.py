@@ -77,9 +77,26 @@ Phases, in order; any failure exits non-zero:
     the CTC kernel against its plain version at (B, T, L) = (4, 500, 96)
     and (4, 256, 72); then ``trace_gan``'s lesson and cycle times, rates,
     per-layer split and idle share;
-12. under ``torch.profiler``, one CUDA launch per epilogue call (9 in a
+12. main path, the GAN's training run — ``GanTrainer.train`` on the same
+    trainer setup for 14 lessons (two cycles), logging, validating over 2
+    batches (and with the SWA weights once SWA has started), starting SWA,
+    dumping sample strips and saving ``checkpoint-latest`` every 7, a
+    numbered checkpoint at 14: finite log entries with CER/WER, every
+    ``val_*`` and ``swa_val_*`` value finite, ``model_best`` written at the
+    first validation with its ``val_gen_CER``, ``checkpoint-latest-swa``'s
+    ``swa_n``, the PNG strips decoded (zlib) to their expected sizes, 8 CTC
+    launches; the run directory as it stood after lesson 7 resumed by a
+    fresh trainer (its loaded state equal to the saved one bit for bit, its
+    first lesson's losses within ``RESUME_RTOL`` of the uninterrupted
+    run's, the parameters' distance after lesson 14 printed); then
+    GAN-trained lines/s through ``train`` against ``run_lesson`` cycles in
+    alternated 7-lesson blocks (and the loop's own host time a block), ms
+    per SWA step, ms per validation batch and validated lines/s, ms and
+    bytes per ``checkpoint-latest`` save, ms per sample dump, and the run's
+    peak device memory;
+13. under ``torch.profiler``, one CUDA launch per epilogue call (9 in a
     generation forward);
-13. summary — one JSON line of kernels (the CTC kernel once for each
+14. summary — one JSON line of kernels (the CTC kernel once for each
     path that runs it, with that path's launches and main-bucket times),
     then the device line last.
 
@@ -163,6 +180,11 @@ GAN_CTC_BUCKETS = [(500, 96), (256, 72)]
 # one lesson's gradients, kernel vs plain CTC, from the same state and
 # draws, relative to each tensor's largest entry (as TRAIN_GRAD_RTOL)
 GAN_GRAD_RTOL = 1e-3
+# the GAN training run: two 7-lesson cycles, logging, validating, starting
+# SWA, dumping strips and saving checkpoint-latest every 7 lessons, a
+# numbered checkpoint at 14; then alternated timing blocks
+GAN_TRAIN_ITERS, GAN_TRAIN_STEP, GAN_TRAIN_VAL_BATCHES = 14, 7, 2
+GAN_TIMING_BLOCKS = 8
 
 
 def block_shapes(dim=256, t=192):
@@ -850,6 +872,307 @@ def gan_phase(torch, tt, F, ctc, card, hwr_ckpt, auto_ckpt):
     return launches, err, times
 
 
+def read_png_gray(path):
+    """The pixels ``[H, W]`` of an 8-bit grayscale PNG whose rows are
+    unfiltered (what the port's sample strips are), decoded with zlib."""
+    import struct
+    import zlib
+
+    import numpy as np
+    data = pathlib.Path(path).read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path} is not a PNG")
+    pos, idat, size = 8, b"", None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if tag == b"IHDR":
+            size = struct.unpack(">IIBB", body[:10])
+        elif tag == b"IDAT":
+            idat += body
+    W, H, depth, color = size
+    if (depth, color) != (8, 0):
+        raise AssertionError(f"{path}: depth {depth}, color type {color}")
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(H, W + 1)
+    if rows[:, 0].any():
+        raise AssertionError(f"{path}: a row is filtered")
+    return rows[:, 1:]
+
+
+def _copy_run_at(batches, pull, src, dst):
+    """``batches``, copying the run directory ``src`` to ``dst`` when the
+    ``pull``-th batch is asked for: the run as it stood after the lesson
+    before the one pulling it (its checkpoints, log and samples)."""
+    import shutil
+    for n, b in enumerate(batches):
+        if n == pull:
+            shutil.copytree(src, dst)
+        yield b
+
+
+def _recording(tr):
+    """Keep each lesson's outputs (device tensors, read after the run)."""
+    outs, run = [], tr.run_lesson
+
+    def recorded(*a, **k):
+        outs.append(run(*a, **k))
+        return outs[-1]
+    tr.run_lesson = recorded
+    return outs
+
+
+def _flat_state(x, prefix=""):
+    if isinstance(x, dict):
+        return [kv for k, v in x.items() for kv in _flat_state(v, f"{prefix}/{k}")]
+    if isinstance(x, (list, tuple)):
+        return [kv for k, v in enumerate(x)
+                for kv in _flat_state(v, f"{prefix}/{k}")]
+    return [(prefix, x)]
+
+
+def _same_state(torch, a, b):
+    """Names of the entries where two GAN state_dicts differ (tensors bit
+    for bit, numbers and the samplers' states by value)."""
+    fa, fb = _flat_state(a), _flat_state(b)
+    if [k for k, _ in fa] != [k for k, _ in fb]:
+        return ["(structure)"]
+    return [k for (k, x), (_, y) in zip(fa, fb)
+            if not (torch.equal(x.cpu(), y.cpu()) if isinstance(x, torch.Tensor)
+                    else x == y)]
+
+
+def gan_train_main_path(torch, ctc, tg, hwr_ckpt, auto_ckpt, run_dir):
+    """``GanTrainer.train`` on the paper GAN for ``GAN_TRAIN_ITERS``
+    lessons with validation, SWA, sample strips and checkpoints in
+    ``run_dir``/a; the run directory as it stood after lesson 7 is copied
+    to ``run_dir``/b and a fresh trainer resumes it to the end.  Returns
+    (CTC launches, the first trainer, batches, validation batches)."""
+    from handwriting_line_generation_tpu_torch.utils import checkpoint as ck
+
+    def trainer(save_dir):
+        tr = tg.trainer(DEVICE, seed=0, pretrained_hwr=hwr_ckpt,
+                        encoder_weights=auto_ckpt)
+        t = tr.cfg.trainer
+        t.save_dir, t.log_step, t.val_step = save_dir, GAN_TRAIN_STEP, \
+            GAN_TRAIN_STEP
+        t.print_every, t.swa, t.swa_start, t.swa_c_iters = \
+            GAN_TRAIN_STEP, True, GAN_TRAIN_STEP, 1
+        t.save_step_minor, t.save_step = GAN_TRAIN_STEP, GAN_TRAIN_ITERS
+        return tr
+    images = [tg.batch(DEVICE, seed) for seed in range(3)]
+    valid = [tg.batch(DEVICE, seed) for seed in (10, 11)]
+    tr = trainer(str(pathlib.Path(run_dir, "a")))
+    name, K = tr.cfg.name, GAN_TRAIN_STEP
+    run_a, run_b = (pathlib.Path(run_dir, d, name) for d in "ab")
+    # the image lessons among 1-7 (count, auto, disc, auto, disc) pull 5
+    # batches: the 6th is lesson 8's
+    pulls = sum(1 for i in range(K) if not all(
+        l[:3] == "gen" or l == "no-step" for l in tr.curriculum.get_lesson(i)))
+    outs_a = _recording(tr)
+    entries = []
+    ctc.ctc_loss_cuda.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr.train(_copy_run_at(itertools.cycle(images), pulls, str(run_a),
+                          str(run_b)),
+             iterations=GAN_TRAIN_ITERS, valid=valid,
+             val_batches=GAN_TRAIN_VAL_BATCHES, on_log=entries.append)
+    wall = time.perf_counter() - t0
+    launches = ctc.ctc_loss_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    logs = [e for e in entries if "CER" in e]
+    vals = [e for e in entries if "val_gen_CER" in e]
+    print(f"GAN training run ({GAN_TRAIN_ITERS} lessons, validation over "
+          f"{GAN_TRAIN_VAL_BATCHES} batches, SWA, strips and checkpoints "
+          f"every {K}): {wall:.1f} s; ctc launches {launches} (want "
+          f"{4 * GAN_TRAIN_ITERS // 7}); peak memory "
+          f"{peak / 2 ** 30:.2f} GiB", flush=True)
+    for e in logs + vals:
+        print("  " + ", ".join(f"{k} {v:.5g}" if isinstance(v, float)
+                              else f"{k} {v}" for k, v in e.items()),
+              flush=True)
+    keys = ["val_autoLoss", "val_perceptualLoss", "val_countLoss", "val_CER",
+            "val_WER", "val_recon_CER", "val_gen_CER"]
+    if [e["iteration"] for e in logs] != [K, 2 * K] or not all(
+            math.isfinite(v) for e in logs for v in e.values()):
+        raise AssertionError("log entries missing or not finite")
+    if len(vals) != 2 or not all(
+            math.isfinite(vals[i][k]) for i in range(2) for k in keys) \
+            or not all(math.isfinite(vals[1]["swa_" + k]) for k in keys):
+        raise AssertionError("a validation or SWA-validation value is "
+                             "missing or not finite")
+    best = ck.load_meta(str(run_b), "model_best")
+    latest = ck.load_meta(str(run_a), "checkpoint-latest-swa")
+    ok = (best["iteration"] == K and best["monitor_value"]
+          == vals[0]["val_gen_CER"] and latest["swa_n"] == K + 1
+          and ck.checkpoint_exists(str(run_a), "checkpoint-latest")
+          and ck.checkpoint_exists(str(run_a),
+                                   f"checkpoint-iteration{2 * K}-swa"))
+    print(f"model_best at the first validation: iteration "
+          f"{best['iteration']}, monitor_value {best['monitor_value']:.5g} "
+          f"(val_gen_CER {vals[0]['val_gen_CER']:.5g}); "
+          f"checkpoint-latest-swa swa_n {latest['swa_n']} (want {K + 1}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the GAN run's checkpoints are not as expected")
+    # a gen strip: per line 64 rows and a 6-row rule of 60; a recon strip:
+    # the original, a 2-row rule of 128, the reconstruction, the 6-row rule
+    B, H, T = tg.B, 64, tr.gen_spaced_len
+    for it in (K, 2 * K):
+        for kind, shape, rules in (
+                ("gen", (B * (H + 6), 4 * T), [(H, H + 6, 60)]),
+                ("recon", (B * (2 * H + 8), tg.tt.W),
+                 [(H, H + 2, 128), (2 * H + 2, 2 * H + 8, 60)])):
+            px = read_png_gray(run_a / "samples" / f"iter{it}_{kind}.png")
+            if px.shape != shape or not all((px[a:b] == v).all()
+                                            for a, b, v in rules):
+                raise AssertionError(f"strip iter{it}_{kind}: {px.shape}, "
+                                     f"want {shape} and its rules")
+    scores = (run_a / "samples" / "disc_scores.txt").read_text().splitlines()
+    print(f"sample strips decode to {B * (H + 6)}x{4 * T} (gen) and "
+          f"{B * (2 * H + 8)}x{tg.tt.W} (recon); disc_scores.txt: {scores}",
+          flush=True)
+    if len(scores) != 2:
+        raise AssertionError("disc_scores.txt needs a line a dump")
+    if launches != 4 * GAN_TRAIN_ITERS // 7:
+        raise AssertionError(f"expected {4 * GAN_TRAIN_ITERS // 7} ctc "
+                             f"launches, got {launches}")
+
+    # resume: a fresh trainer reads the run as it stood after lesson 7
+    again = trainer(str(pathlib.Path(run_dir, "b")))
+    saved = ck.load_checkpoint(str(run_b), "checkpoint-latest")
+    again.load_state_dict(saved)
+    again._resume_side(str(run_b))
+    swa = ck.load_checkpoint(str(run_b), "checkpoint-latest-swa")
+    differ = _same_state(torch, again.state_dict(), saved) + [
+        n for n, t in zip(again.state.names, again.swa)
+        if not torch.equal(t.cpu(), swa[n])]
+    print(f"resumed trainer after loading checkpoint-latest (iteration "
+          f"{saved['step']}): {len(_flat_state(saved))} entries and "
+          f"{len(swa)} SWA tensors, differing from the saved ones: "
+          f"{differ or 'none'}", flush=True)
+    if differ or saved["step"] != K:
+        raise AssertionError("the loaded state differs from the saved one")
+    outs_b = _recording(again)
+    again.train(itertools.islice(itertools.cycle(images), pulls, None),
+                iterations=GAN_TRAIN_ITERS, valid=valid,
+                val_batches=GAN_TRAIN_VAL_BATCHES)
+    first = {k: (float(v), float(outs_a[K][k]))
+             for k, v in outs_b[0].items() if k.endswith("Loss")}
+    rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in first.values())
+    gap = max((p - q).abs().max().item()
+              for p, q in zip(tr.state.params, again.state.params))
+    scale = max(p.abs().max().item() for p in tr.state.params)
+    print(f"resumed lesson {K + 1} vs the uninterrupted run's: "
+          + ", ".join(f"{k} {a:.7g} vs {b:.7g}" for k, (a, b) in first.items())
+          + f" (max rel {rel:.2e}, bound {RESUME_RTOL}); after lesson "
+          f"{2 * K} the parameters differ by at most {gap:.3e} (largest "
+          f"|parameter| {scale:.3g}); swa_n {again.swa_n}", flush=True)
+    if not (rel <= RESUME_RTOL and again.step == GAN_TRAIN_ITERS
+            and again.swa_n == tr.swa_n):
+        raise AssertionError("the resumed run's first lesson differs")
+    del again
+    return launches, tr, images, valid
+
+
+def time_gan_train(torch, tg, tr, images, valid, card):
+    """Lines/s through ``GanTrainer.train`` (7-lesson blocks, no SWA,
+    validation, dumps or saves, as the paper config trains between its
+    log steps) against ``run_lesson`` cycles, alternated, CUDA events, and
+    the loop's own host time a block; then ms per SWA step, per validation
+    batch, per checkpoint-latest save (and its bytes) and per sample
+    dump."""
+    import statistics
+
+    from handwriting_line_generation_tpu_torch.utils.checkpoint import \
+        save_checkpoint
+    batches = itertools.cycle(images)
+    t = tr.cfg.trainer
+    # the paper config's loop: no SWA (its step is timed on its own below),
+    # no validation, dumps or saves inside the blocks
+    t.swa = False
+    t.val_step = t.print_every = t.save_step = t.save_step_minor = 0
+    work = tempfile.mkdtemp(dir=t.save_dir)
+    t.save_dir = work
+    host, lesson = [], []
+    run_lesson = tr.run_lesson
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        out = run_lesson(*a, **k)
+        lesson.append(time.perf_counter() - t0)
+        return out
+    tr.run_lesson = timed
+
+    def events(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        host.append(time.perf_counter() - t0)
+        return start.elapsed_time(end)
+    n = len(tr.curriculum.stages[0][1])
+    run = {"run_lesson": lambda: tg.cycle(tr, batches),
+           "train": lambda: tr.train(batches, iterations=tr.step + n,
+                                     log_every=10 ** 9)}
+    blocks = {k: [] for k in run}
+    own = []            # a train block's host wall less its lessons' own
+    for fn in run.values():                               # warm-ups
+        fn()
+    # alternated, each pair in the other order than the last (ABBA)
+    for b in range(GAN_TIMING_BLOCKS):
+        for k in (("run_lesson", "train") if b % 2 == 0
+                  else ("train", "run_lesson")):
+            del lesson[:]
+            blocks[k].append(events(run[k]))
+            if k == "train":
+                own.append((host[-1] - sum(lesson)) * 1e3)
+    tr.run_lesson = run_lesson
+    rate = {k: tg.B * n * 1e3 / statistics.median(v)
+            for k, v in blocks.items()}
+    for k, v in blocks.items():
+        print(f"GAN {k} blocks of {n} lessons (TF32 off): "
+              + " ".join(f"{x:.3f}" for x in v) + f" ms; median "
+              f"{statistics.median(v):.3f} ms, {rate[k]:.2f} GAN-trained "
+              f"lines/s {card}", flush=True)
+    ratio = rate["train"] / rate["run_lesson"]
+    swa_ms = statistics.median(events(tr._swa_step) for _ in range(10))
+    print(f"GanTrainer.train / run_lesson lines/s: {ratio:.4f}; the loop's "
+          f"own host time a {n}-lesson block (its wall less its lessons'): "
+          f"median {statistics.median(own):.3f} ms; SWA step "
+          f"{swa_ms:.3f} ms {card}", flush=True)
+    val_ms = statistics.median(events(lambda: tr.validate(
+        iter(valid), GAN_TRAIN_VAL_BATCHES)) for _ in range(3))
+    lines = tg.B * GAN_TRAIN_VAL_BATCHES
+    path = pathlib.Path(work, "checkpoint-latest.pt")
+    save_ms = statistics.median(events(lambda: save_checkpoint(
+        work, "checkpoint-latest", tr.state_dict(), {"name": "timing"}))
+        for _ in range(3))
+    dump_ms = statistics.median(events(lambda: tr._dump_samples(
+        tr.step, valid, work)) for _ in range(3))
+    print(f"validation: {val_ms / GAN_TRAIN_VAL_BATCHES:.3f} ms a batch of "
+          f"{tg.B} lines, {lines * 1e3 / val_ms:.2f} validated lines/s; "
+          f"checkpoint-latest save {save_ms:.3f} ms, "
+          f"{path.stat().st_size} bytes; sample dump {dump_ms:.3f} ms "
+          f"{card}", flush=True)
+    return rate
+
+
+def gan_train_phase(torch, ctc, card, hwr_ckpt, auto_ckpt, run_dir):
+    """Phase 12.  Returns the CTC launches of the training run."""
+    from handwriting_line_generation_tpu_torch import trace_gan as tg
+    launches, tr, images, valid = gan_train_main_path(
+        torch, ctc, tg, hwr_ckpt, auto_ckpt, run_dir)
+    time_gan_train(torch, tg, tr, images, valid, card)
+    del tr
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1044,12 +1367,17 @@ def main():
         / "checkpoint-latest"
     gan_launches, gan_err, gan_t = gan_phase(torch, tt, F, ctc, card,
                                              str(hwr_ckpt), str(auto_ckpt))
+
+    # 12. main path: the GAN's training run (GanTrainer.train) through the
+    # CTC kernel at the same buckets
+    run_launches = gan_train_phase(torch, ctc, card, str(hwr_ckpt),
+                                   str(auto_ckpt), ckpts.name)
     ckpts.cleanup()
     print(f"ctc launches on the main paths: HWR training {ctc_launches}, "
           f"autoencoder pretraining {auto_launches}, GAN training "
-          f"{gan_launches}", flush=True)
+          f"{gan_launches}, GAN training run {run_launches}", flush=True)
 
-    # 12. one CUDA launch per epilogue call, seen by the profiler (last, so
+    # 13. one CUDA launch per epilogue call, seen by the profiler (last, so
     # that its hooks touch no timed phase), on a small paper-width session
     small, s_labels, s_lens, s_styles = bench.build(CHECK_BATCH)
     cuda_launches = count_device_kernels(
@@ -1061,7 +1389,7 @@ def main():
         raise AssertionError(f"expected one CUDA launch per epilogue call, "
                              f"9 per forward; got {cuda_launches}")
 
-    # 13. summary
+    # 14. summary
     print(smi)
     # the CTC kernel once per path that runs it: each entry's launches come
     # from that path's run, its times from that path's main bucket
@@ -1071,7 +1399,9 @@ def main():
         ("autoencoder pretraining", (ta.B,) + AUTO_CTC_BUCKETS[AUTO_CTC_MAIN],
          auto_launches, auto_err, auto_t),
         ("GAN training", (4,) + GAN_CTC_BUCKETS[0], gan_launches, gan_err,
-         gan_t)]
+         gan_t),
+        ("GAN training run", (4,) + GAN_CTC_BUCKETS[0], run_launches,
+         gan_err, gan_t)]
     print(json.dumps({"kernels": [{
         "name": "gen_epilogue", "route": "cuda",
         "source": "handwriting_line_generation_tpu_torch/csrc/gen_epilogue.cu",

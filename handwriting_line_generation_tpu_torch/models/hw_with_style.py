@@ -119,7 +119,8 @@ class HWWithStyle(nn.Module):
                    frame_lengths: Optional[torch.Tensor] = None,
                    noise: Optional[List[torch.Tensor]] = None,
                    generator: Optional[torch.Generator] = None,
-                   vae_generator: Optional[torch.Generator] = None):
+                   vae_generator: Optional[torch.Generator] = None,
+                   vae_eps: Optional[torch.Tensor] = None):
         """Reconstruct each line in its own extracted style: extract, align
         the prediction to the label (``viterbi_align`` unless
         ``spaced_label`` is given), regenerate.  Returns ``(image [B, 64,
@@ -127,15 +128,17 @@ class HWWithStyle(nn.Module):
 
         ``noise`` / ``generator``: the generator's noise planes, as in
         :meth:`generate_spaced`.  A VAE extractor regenerates from ``mu +
-        exp(log_sigma) * eps``, ``eps`` drawn from ``vae_generator``, when
-        one is given, and from ``mu`` otherwise; aux keeps ``(mu,
-        log_sigma)``."""
+        exp(log_sigma) * eps``, ``eps`` given as ``vae_eps`` or drawn from
+        ``vae_generator``, when either is given, and from ``mu`` otherwise;
+        aux keeps ``(mu, log_sigma)``."""
         style, pred = self.extract_style(image, a_batch_size,
                                          frame_lengths=frame_lengths)
-        if self.cfg.style.vae and vae_generator is not None:
+        if self.cfg.style.vae and (vae_generator is not None
+                                   or vae_eps is not None):
             mu, log_sigma = style
-            eps = torch.randn(mu.shape, generator=vae_generator,
-                              device=mu.device, dtype=mu.dtype)
+            eps = (torch.randn(mu.shape, generator=vae_generator,
+                               device=mu.device, dtype=mu.dtype)
+                   if vae_eps is None else vae_eps.to(mu))
             gen_style = mu + torch.exp(log_sigma) * eps
         else:
             gen_style = _flat_style(style)

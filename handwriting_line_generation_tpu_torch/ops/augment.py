@@ -23,7 +23,7 @@ not ported yet.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -152,14 +152,21 @@ def apply_augmentation(kind: Union[str, bool, None], img: torch.Tensor,
                        fg_mask: Optional[torch.Tensor],
                        generator: Optional[torch.Generator],
                        max_stretch: float = 0.4,
-                       max_rot_rad: float = 45 / 180 * 3.14159265
+                       max_rot_rad: float = 45 / 180 * 3.14159265,
+                       draws: Optional[Mapping[str, torch.Tensor]] = None
                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                                   torch.Tensor]:
     """Dispatch per ``DataConfig.augmentation``.  Returns ``(image, fg_mask,
     width_scale)``: ``"affine"`` shares one (skew, stretch) draw across the
     batch and reports the stretch; any other non-empty kind but
     ``"normalization"`` is brightness + warp, as is ``True``, which
-    reference configs use to mean it."""
+    reference configs use to mean it.
+
+    ``draws``: precomputed random draws in place of ``generator``'s, as
+    tests inject the JAX package's: ``"stretch"`` and ``"skew"`` (scalars)
+    for ``"affine"``; ``"shifts"`` and ``"offsets"`` (see
+    :func:`tensmeyer_brightness`, :func:`grid_warp`) for brightness + warp."""
+    d = draws or {}
     one = torch.ones((), device=img.device)
     if not kind:
         return img, fg_mask, one
@@ -169,17 +176,22 @@ def apply_augmentation(kind: Union[str, bool, None], img: torch.Tensor,
             "ported yet (ROADMAP.md Queue 1 item 4)")
     B = img.shape[0]
     if isinstance(kind, str) and "affine" in kind:
-        u = torch.rand((2,), generator=generator, device=img.device)
-        stretch = (1 - max_stretch) + u[0] * (2 * max_stretch)
-        skew = -max_rot_rad + u[1] * (2 * max_rot_rad)
+        if "stretch" in d:
+            stretch, skew = (torch.as_tensor(d[k], dtype=img.dtype,
+                                             device=img.device)
+                             for k in ("stretch", "skew"))
+        else:
+            u = torch.rand((2,), generator=generator, device=img.device)
+            stretch = (1 - max_stretch) + u[0] * (2 * max_stretch)
+            skew = -max_rot_rad + u[1] * (2 * max_rot_rad)
         stretch_b, skew_b = stretch.expand(B), skew.expand(B)
         out = affine_slant_stretch(img, skew_b, stretch_b)
         if fg_mask is not None:
             fg_mask = affine_slant_stretch(fg_mask, skew_b, stretch_b,
                                            fill=0.0)
         return out, fg_mask, stretch
-    out = tensmeyer_brightness(img, generator)
-    out = grid_warp(out, generator)
+    out = tensmeyer_brightness(img, generator, shifts=d.get("shifts"))
+    out = grid_warp(out, generator, offsets=d.get("offsets"))
     return out, fg_mask, one
 
 

@@ -34,29 +34,47 @@ the CUDA kernel on the card.
 
 Each step takes ``draws=``, a mapping of the step's random draws (tests
 inject the JAX trainer's): ``"noise"`` (the generator's 10 planes),
-``"normals"`` (``insert_spaces``' two jitter planes) and ``"bank"``
-(``bank_sample``'s ``(idx, mix, normal)``).  What is not given is drawn
-from the state's ``torch.Generator``, as are the augmentation's draws.
+``"normals"`` (``insert_spaces``' two jitter planes), ``"bank"``
+(``bank_sample``'s ``(idx, mix, normal)``), ``"aug"`` (the augmentation's,
+see ``ops.augment.apply_augmentation``) and ``"vae"`` (a VAE style's eps).
+What is not given is drawn from the state's ``torch.Generator``.
 
-Not ported yet (``ROADMAP.md``): ``train`` with validation, checkpoints,
-resume and SIGINT, ``eval_step``/``eval_gen_step``, SWA, the pseudo-labels
-of ``$UNKOWN$`` lines, the sample dumps, and the VAE style's KL.
+A VAE style adds its KL as a second output of the one autoencode forward:
+the main group is ``autograd.grad([recon, kl], params, [ct_main,
+w_styleReg])``, and the bank stores ``mu``.
+
+:meth:`GanTrainer.train` is the loop of ``training/loop.py``: lesson
+``get_lesson(i - 1)`` at iteration ``i`` (the JAX loop's 0-based ``i``),
+validation (:meth:`GanTrainer.validate`: losses, CER/WER of the originals,
+of their reconstructions and of generated lines), ``model_best`` on
+``trainer.monitor``, SWA, sample strips, checkpoints holding the whole
+state (:meth:`GanTrainer.state_dict`), resume and SIGINT.  Unlike the JAX
+loop, it builds its state from a seed alone (JAX consumes the first batch
+to build it), and a resumed run continues the text sampler where it was
+(JAX re-seeds it).
 """
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import os
 import warnings
-from typing import Any, Dict, Iterator, List, Mapping, Optional
+from typing import (Any, Dict, Iterable, Iterator, List, Mapping, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
 
-from handwriting_line_generation_tpu_torch.charset import get_charset
+from handwriting_line_generation_tpu_torch.charset import (
+    collapse_argmax_batch, ctc_greedy_decode_batch, get_charset,
+)
 from handwriting_line_generation_tpu_torch.config import Config
 from handwriting_line_generation_tpu_torch.convert import convert_params
 from handwriting_line_generation_tpu_torch.data.text_data import TextSampler
 from handwriting_line_generation_tpu_torch.device import resolve_device
+from handwriting_line_generation_tpu_torch.inference.generate import \
+    to_uint8
 from handwriting_line_generation_tpu_torch.init import (
     init_autoencoder, init_params, init_spectral,
 )
@@ -78,15 +96,22 @@ from handwriting_line_generation_tpu_torch.ops.spacing import (
 )
 from handwriting_line_generation_tpu_torch.training.curriculum import \
     Curriculum
+from handwriting_line_generation_tpu_torch.training.loop import (
+    CheckpointedTrainer, validation_batches,
+)
 from handwriting_line_generation_tpu_torch.training.losses import (
-    disc_hinge_loss, gen_adv_loss,
+    disc_hinge_loss, gen_adv_loss, vae_kl,
 )
 from handwriting_line_generation_tpu_torch.training.train_state import (
     GanTrainState, balance_and_merge, bank_push, bank_sample,
-    create_gan_state, global_norm, multipliers_at,
+    create_gan_state, global_norm, multipliers_at, swa_update,
 )
-from handwriting_line_generation_tpu_torch.utils.checkpoint import \
-    extract_subtree
+from handwriting_line_generation_tpu_torch.utils.checkpoint import (
+    checkpoint_exists, extract_subtree, load_checkpoint, load_meta,
+)
+from handwriting_line_generation_tpu_torch.utils.error_rates import \
+    batch_cer_wer
+from handwriting_line_generation_tpu_torch.utils.png import write_png_gray
 
 Draws = Optional[Mapping[str, Any]]
 GROUPS = ("genRecog", "genAdv", "autoGenAdv", "reconRecog")
@@ -143,9 +168,17 @@ def _grads(outputs, params, grad_outputs, retain_graph: bool
             for g, p in zip(got, params)]
 
 
-class GanTrainer:
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+class GanTrainer(CheckpointedTrainer):
     """``GanTrainer(cfg, device=None)``: ``cuda`` unless ``device`` names
-    another; call :meth:`init_state` before stepping."""
+    another; call :meth:`init_state` before stepping (``train`` calls it
+    with ``trainer.seed``)."""
+
+    VAL_BATCHES = 5                   # the JAX loop's val_batches
+    LOG_AT_VALIDATION = True
 
     def __init__(self, cfg: Config, device=None):
         c = cfg
@@ -165,10 +198,6 @@ class GanTrainer:
             "generator": lw.get("generator", 1.0),
             "styleReg": lw.get("styleReg", 1.0),
         }
-        if c.model.style.vae:
-            raise NotImplementedError(
-                "GAN training of a VAE style (the KL group) is not ported "
-                "yet (ROADMAP.md Queue 1 item 7b)")
         self.use_perceptual = "perceptual" in (c.trainer.loss or
                                                {"perceptual": 1})
         self.no_bg_loss = c.trainer.no_bg_loss
@@ -187,8 +216,17 @@ class GanTrainer:
             max_len=c.trainer.text_data_max_len or max(c.data.label_buckets),
             seed=c.trainer.seed)
         self.encoder = None
+        self.model: Optional[HWWithStyle] = None
         self.state: Optional[GanTrainState] = None
         self._last_pred = None
+        # SWA running mean of the parameters (not the u's), in
+        # ``state.params`` order, and how many it has averaged
+        self.swa: Optional[List[torch.Tensor]] = None
+        self.swa_n = 0
+
+    @property
+    def step(self) -> int:
+        return self.state.step
 
     # -- setup -----------------------------------------------------------
 
@@ -252,6 +290,14 @@ class GanTrainer:
     def _tensor(self, x) -> Optional[torch.Tensor]:
         return None if x is None else torch.as_tensor(x).to(self.device)
 
+    def _augment(self, image, fg_mask, draws: Draws):
+        """``apply_augmentation`` with the config's kind, its draws from
+        ``draws["aug"]`` or the state's generator."""
+        aug = {k: self._tensor(v)
+               for k, v in ((draws or {}).get("aug") or {}).items()}
+        return apply_augmentation(self.cfg.data.augmentation, image, fg_mask,
+                                  self.state.generator, draws=aug)
+
     def _perceptual(self, image: torch.Tensor, recon: torch.Tensor
                     ) -> torch.Tensor:
         """L1 between the frozen encoder's outputs (bottleneck and mid) of
@@ -298,8 +344,7 @@ class GanTrainer:
         image, label, lens, width = map(self._tensor,
                                         (image, label, lens, width))
         image = dequantize_image(image, width)
-        image, _, wscale = apply_augmentation(c.data.augmentation, image,
-                                              None, s.generator)
+        image, _, wscale = self._augment(image, None, draws)
         frames = self._frames(width, wscale, image.shape[2])
         with torch.no_grad():
             pred = mask_frames_to_blank(self.model.recognize(image), frames)
@@ -362,15 +407,17 @@ class GanTrainer:
         s, c = self.state, self.cfg
         image, label, lens, width = map(self._tensor,
                                         (image, label, lens, width))
+        d, vae = draws or {}, c.model.style.vae
         image = dequantize_image(image, width)
         fg_mask = fg_to_float(self._tensor(fg_mask))
-        image, fg_mask, wscale = apply_augmentation(
-            c.data.augmentation, image, fg_mask, s.generator)
+        image, fg_mask, wscale = self._augment(image, fg_mask, draws)
         frames = self._frames(width, wscale, image.shape[2])
         recon, aux = self.model.autoencode(
             image, label, lens, a_batch,
             spaced_label=self._tensor(spaced_label), frame_lengths=frames,
-            noise=(draws or {}).get("noise"), generator=s.generator)
+            noise=d.get("noise"), generator=s.generator,
+            vae_generator=s.generator if vae else None,
+            vae_eps=self._tensor(d.get("vae")))
         r = recon.detach().requires_grad_(True)
         # main group: fg-masked L1 + perceptual
         if self.no_bg_loss and fg_mask is not None:
@@ -392,7 +439,16 @@ class GanTrainer:
         recog_l = self._ctc(logp, label, lens, self.w["reconRecog"])
         ct_recog, *recog_p = torch.autograd.grad(
             recog_l, [r] + recog_params, allow_unused=True)
-        main_g = _grads(recon, s.params, ct_main, retain_graph=True)
+        if vae:
+            # the KL is a second output of the same forward: its gradient
+            # reaches the style extractor directly, not through the recon
+            kl = vae_kl(*aux["style"])
+            logs["klLoss"] = kl.detach()
+            main_g = _grads([recon, kl], s.params,
+                            [ct_main, torch.full_like(kl, self.w["styleReg"])],
+                            retain_graph=True)
+        else:
+            main_g = _grads(recon, s.params, ct_main, retain_graph=True)
         if self.balance:
             adv_g = _grads(recon, s.params, ct_adv, retain_graph=True)
             recog_g = _grads(recon, s.params, ct_recog, retain_graph=False)
@@ -440,8 +496,7 @@ class GanTrainer:
         image, label, lens, width = map(self._tensor,
                                         (image, label, lens, width))
         image = dequantize_image(image, width)
-        image, _, _ = apply_augmentation(c.data.augmentation, image, None,
-                                         s.generator)
+        image, _, _ = self._augment(image, None, draws)
         B = label.shape[0]
         style_gen = (self._bank_style(B, draws) if style_gen is None
                      else self._tensor(style_gen).float())
@@ -483,14 +538,13 @@ class GanTrainer:
                                              tb["label_lengths"],
                                              self.gen_spaced_len, draws))
         batch = next(data_iter)
-        if "$UNKOWN$" in batch.get("gt", []):
-            raise NotImplementedError(
-                "pseudo-labels of $UNKOWN$ lines are not ported yet "
-                "(ROADMAP.md Queue 1 item 7b)")
         image = batch["image"]
         if (c.data.u8_transfer and isinstance(image, np.ndarray)
                 and image.dtype != np.uint8):
             image = quantize_image_u8(image)
+        if "$UNKOWN$" in batch.get("gt", []):
+            image = self._tensor(image)       # one transfer for both uses
+            batch = self.pseudo_label_unknown(batch, image=image)
         args = (image, batch["label"], batch["label_lengths"])
         a_batch = batch.get("a_batch_size", 1)
         spaced = batch.get("spaced_label")
@@ -526,3 +580,334 @@ class GanTrainer:
             return keep(self.step_disc(*args, batch["width"], a_batch,
                                        style_gen, draws))
         raise ValueError(f"no step for lesson {lesson}")
+
+    def pseudo_label_unknown(self, batch: Dict, image=None) -> Dict:
+        """``$UNKOWN$`` lines relabelled with the recognizer's greedy decode
+        of their image (frames past the ink width blank), so they still
+        feed the alignment-dependent losses.  A line whose decode is empty
+        stays, with length 0, as in JAX.  ``image``: the batch's image
+        already on the device.  A batch without such lines is returned as
+        it is."""
+        if "$UNKOWN$" not in batch.get("gt", []):
+            return batch
+        image = self._tensor(batch["image"] if image is None else image)
+        width = self._tensor(batch["width"])
+        frames = torch.clamp((width + 3) // 4, 1, image.shape[2] // 4)
+        with torch.no_grad():
+            logp = mask_frames_to_blank(
+                self.model.recognize(dequantize_image(image, width)), frames)
+        preds = ctc_greedy_decode_batch(_host(logp), self.charset)
+        label = np.array(_host(batch["label"]), copy=True)
+        lens = np.array(_host(batch["label_lengths"]), copy=True)
+        gt = list(batch["gt"])
+        L = label.shape[1]
+        for b, g in enumerate(gt):
+            if g != "$UNKOWN$":
+                continue
+            enc = self.charset.encode(preds[b])[:L]
+            label[b] = 0
+            label[b, :len(enc)] = enc
+            lens[b] = len(enc)
+            gt[b] = preds[b]
+        return dict(batch, label=label, label_lengths=lens, gt=gt)
+
+    # -- evaluation ------------------------------------------------------------
+
+    def _eval_autoencode(self, image, label, lens, width, a_batch: int,
+                         draws: Draws):
+        """The batch autoencoded for evaluation: no augmentation, ``mu`` for
+        a VAE style, the generator's noise from a generator seeded 0 (or
+        ``draws["noise"]``), frames past each ink width blank.  Returns
+        ``(image, recon, aux, frames, label, lens)`` on the device."""
+        image, label, lens, width = map(self._tensor,
+                                        (image, label, lens, width))
+        image = dequantize_image(image, width)
+        frames = torch.clamp((width + 3) // 4, 1, image.shape[2] // 4)
+        noise = (draws or {}).get("noise")
+        recon, aux = self.model.autoencode(
+            image, label, lens, a_batch, frame_lengths=frames, noise=noise,
+            generator=(torch.Generator(self.device).manual_seed(0)
+                       if noise is None else None))
+        return image, recon, aux, frames, label, lens
+
+    def _probe(self, label, lens, spaced_len: int, seed: int, draws: Draws):
+        """Lines generated from ``label`` in bank-interpolated styles, the
+        draws from a generator seeded with ``seed`` (or ``draws``).
+        Returns ``(image, aux, style)``."""
+        label, lens = self._tensor(label), self._tensor(lens)
+        s, d = self.state, draws or {}
+        g = torch.Generator(self.device).manual_seed(seed)
+        style = bank_sample(s.style_bank, s.bank_count, label.shape[0],
+                            self.interp_low, self.interp_high,
+                            self.cfg.model.packed_style_dim(), g,
+                            d.get("bank"))
+        img, aux = self.model.generate(label, lens, style,
+                                       spaced_len=spaced_len, generator=g,
+                                       normals=d.get("normals"),
+                                       noise=d.get("noise"))
+        return img, aux, style
+
+    @torch.no_grad()
+    def eval_step(self, image, label, lens, width, a_batch: int = 1,
+                  draws: Draws = None) -> Dict:
+        """Validation losses of one batch (:meth:`_eval_autoencode`) and the
+        recognizer's argmaxes on the originals (``pred_am``) and on their
+        reconstructions (``recon_am``)."""
+        c = self.cfg
+        image, recon, aux, frames, label, lens = self._eval_autoencode(
+            image, label, lens, width, a_batch, draws)
+        out = {"val_autoLoss": (recon - image).abs().mean()}
+        if self.use_perceptual:
+            out["val_perceptualLoss"] = self._perceptual(image, recon)
+        gt_counts, n_rec = counts_from_spaced(aux["spaced_label"],
+                                              label.shape[1])
+        counts = self.model.spacer(onehot(label, c.model.num_class),
+                                   _flat_style(aux["style"]))
+        mask = (torch.arange(label.shape[1], device=self.device)[None, :]
+                < torch.minimum(n_rec, lens.long())[:, None])[..., None]
+        out["val_countLoss"] = ((torch.where(mask, counts, 0.0)
+                                 - torch.where(mask, gt_counts, 0.0)) ** 2
+                                ).mean()
+        recon_logp = mask_frames_to_blank(self.model.recognize(recon), frames)
+        out["pred_am"] = aux["pred"].argmax(-1)
+        out["recon_am"] = recon_logp.argmax(-1)
+        return out
+
+    @torch.no_grad()
+    def eval_gen_step(self, label, lens, spaced_len: int, seed: int = 0,
+                      draws: Draws = None) -> Dict:
+        """The gen-CER probe: :meth:`_probe`'s lines read back by the
+        recognizer: ``gen_am``."""
+        img, aux, _ = self._probe(label, lens, spaced_len, seed, draws)
+        frames = torch.clamp(aux["total_len"], 1, spaced_len)
+        logp = mask_frames_to_blank(self.model.recognize(img), frames)
+        return {"gen_am": logp.argmax(-1)}
+
+    @contextlib.contextmanager
+    def _weights(self, params: Optional[Sequence[torch.Tensor]]):
+        """The model with ``params`` (in ``state.params`` order) in place of
+        its own parameters, restored after."""
+        if params is None:
+            yield
+            return
+        own = [p.detach().clone() for p in self.state.params]
+        with torch.no_grad():
+            torch._foreach_copy_(self.state.params, list(params))
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                torch._foreach_copy_(self.state.params, own)
+
+    def validate(self, batches: Iterable[Dict],
+                 max_batches: Optional[int] = None,
+                 params: Optional[Sequence[torch.Tensor]] = None,
+                 draws: Optional[Sequence[Tuple[Draws, Draws]]] = None
+                 ) -> Dict[str, float]:
+        """``val_autoLoss``, ``val_perceptualLoss`` and ``val_countLoss``
+        (each batch's, averaged over batches), ``val_CER``/``val_WER`` of
+        the recognizer on the originals, ``val_recon_CER`` on their
+        reconstructions and ``val_gen_CER`` on lines generated from their
+        text (batch ``i``'s probe seeded ``1000 + i``).  ``params``: weights
+        to validate in place of the model's (the SWA average); ``draws``:
+        per batch, the ``(eval_step, eval_gen_step)`` draws."""
+        totals: Dict[str, float] = {}
+        gts: List[str] = []
+        preds: List[str] = []
+        rpreds: List[str] = []
+        gpreds: List[str] = []
+        n = 0
+        decode = lambda am: collapse_argmax_batch(_host(am), self.charset)
+        with self._weights(params):
+            for i, batch in enumerate(itertools.islice(batches, max_batches)):
+                d_eval, d_gen = draws[i] if draws else (None, None)
+                out = self.eval_step(batch["image"], batch["label"],
+                                     batch["label_lengths"], batch["width"],
+                                     batch.get("a_batch_size", 1), d_eval)
+                gen = self.eval_gen_step(batch["label"],
+                                         batch["label_lengths"],
+                                         self.gen_spaced_len, 1000 + i, d_gen)
+                gts.extend(batch["gt"])
+                preds.extend(decode(out.pop("pred_am")))
+                rpreds.extend(decode(out.pop("recon_am")))
+                gpreds.extend(decode(gen["gen_am"]))
+                for k, v in out.items():
+                    totals[k] = totals.get(k, 0.0) + float(v)
+                n += 1
+        res = {k: v / max(n, 1) for k, v in totals.items()}
+        if gts:
+            res["val_CER"], res["val_WER"] = batch_cer_wer(gts, preds)
+            res["val_recon_CER"], _ = batch_cer_wer(gts, rpreds)
+            res["val_gen_CER"], _ = batch_cer_wer(gts, gpreds)
+        return res
+
+    # -- SWA -------------------------------------------------------------------
+
+    def _swa_step(self) -> None:
+        """Start the running mean at the current parameters, or add them."""
+        if self.swa is None:
+            self.swa = [p.detach().clone() for p in self.state.params]
+            self.swa_n = 1
+            return
+        swa_update(self.swa, self.state.params, self.swa_n)
+        self.swa_n += 1
+
+    # -- checkpoints -----------------------------------------------------------
+
+    def state_dict(self) -> Dict[str, Any]:
+        """Everything a resumed run needs to continue exactly: the model
+        (parameters and the spectral-norm ``u``'s), every optimizer, the
+        saved gradient groups, the style bank, the step, the generator and
+        the text sampler's position."""
+        s = self.state
+        opt = lambda o: None if o is None else o.state_dict()
+        return {"model": self.model.state_dict(), "step": s.step,
+                "opt_main": opt(s.opt_main), "opt_disc": opt(s.opt_disc),
+                "opt_gen_only": opt(s.opt_gen_only),
+                "opt_style_ex": opt(s.opt_style_ex),
+                "saved_recog": list(s.saved_recog),
+                "saved_adv": list(s.saved_adv), "have_saved": s.have_saved,
+                "style_bank": s.style_bank, "bank_count": s.bank_count,
+                "generator": s.generator.get_state(),
+                "text_rng": self.text.rng.bit_generator.state}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        s = self.state
+        self.model.load_state_dict(state["model"])
+        for name in ("opt_main", "opt_disc", "opt_gen_only", "opt_style_ex"):
+            if getattr(s, name) is not None:
+                getattr(s, name).load_state_dict(state[name])
+        with torch.no_grad():
+            torch._foreach_copy_(s.saved_recog + s.saved_adv,
+                                 [t.to(self.device) for t in
+                                  state["saved_recog"] + state["saved_adv"]])
+            s.style_bank.copy_(state["style_bank"])
+        s.have_saved = bool(state["have_saved"])
+        s.bank_count = int(state["bank_count"])
+        s.step = int(state["step"])
+        s.generator.set_state(state["generator"])
+        self.text.rng.bit_generator.state = state["text_rng"]
+
+    # -- the loop's hooks ------------------------------------------------------
+
+    def monitor(self) -> Tuple[Optional[str], str]:
+        return self.cfg.trainer.monitor, self.cfg.trainer.monitor_mode
+
+    def _train_step(self, batches: Iterator[Dict], iteration: int,
+                    log_step: bool) -> Optional[Dict]:
+        try:
+            return self.run_lesson(self.curriculum.get_lesson(iteration - 1),
+                                   batches, iteration=iteration - 1)
+        except StopIteration:
+            return None
+
+    def _log_extra(self) -> Dict:
+        """CER/WER of the recognizer on the last auto lesson's batch."""
+        if self._last_pred is None:
+            return {}
+        am, gt = self._last_pred
+        cer, wer = batch_cer_wer(gt, collapse_argmax_batch(_host(am),
+                                                           self.charset))
+        return {"CER": cer, "WER": wer}
+
+    def _validation(self, valid: Any, val_batches: int) -> Dict:
+        """The model's validation, and once SWA has started, the SWA
+        weights' under ``swa_`` keys."""
+        val = self.validate(validation_batches(valid), val_batches)
+        if self.swa is not None:
+            swa = self.validate(validation_batches(valid), val_batches,
+                                params=self.swa)
+            val.update({f"swa_{k}": v for k, v in swa.items()})
+        return val
+
+    def _after_step(self, iteration: int, run_dir: str, valid: Any) -> None:
+        t = self.cfg.trainer
+        if (t.swa and iteration >= t.swa_start
+                and (iteration - t.swa_start) % max(t.swa_c_iters, 1) == 0):
+            self._swa_step()
+        if t.print_every and iteration % t.print_every == 0 \
+                and valid is not None:
+            self._dump_samples(iteration, valid, run_dir)
+
+    def _side_checkpoints(self) -> Tuple[Dict[str, Any], Dict]:
+        side = ({} if self.swa is None else
+                {"swa": dict(zip(self.state.names, self.swa))})
+        return side, {"swa_n": self.swa_n}
+
+    def _resume_side(self, run_dir: str) -> None:
+        if checkpoint_exists(run_dir, "checkpoint-latest-swa"):
+            saved = load_checkpoint(run_dir, "checkpoint-latest-swa")
+            self.swa = [saved[n].to(self.device) for n in self.state.names]
+            self.swa_n = int(load_meta(run_dir, "checkpoint-latest-swa")
+                             .get("swa_n", 1))
+
+    # -- sample dumps ----------------------------------------------------------
+
+    def _dump_samples(self, iteration: int, valid: Any, run_dir: str) -> None:
+        """The first validation batch as two strips, ``iter<N>_gen.png``
+        (generated from its text) and ``iter<N>_recon.png`` (each original
+        above its reconstruction), under ``trainer.print_dir`` or
+        ``<run_dir>/samples``, and the discriminator's mean scores of the
+        real and the generated lines appended to ``disc_scores.txt``."""
+        out_dir = self.cfg.trainer.print_dir or os.path.join(run_dir,
+                                                             "samples")
+        os.makedirs(out_dir, exist_ok=True)
+        batch = next(iter(validation_batches(valid, seed=7)))
+        gen = self.eval_gen_render(batch["label"], batch["label_lengths"],
+                                   self.gen_spaced_len, seed=iteration)
+        rec = self._recon_render(batch["image"], batch["label"],
+                                 batch["label_lengths"], batch["width"],
+                                 batch.get("a_batch_size", 1))
+        self._write_strip(os.path.join(out_dir, f"iter{iteration}_gen.png"),
+                          _host(gen["img"]), batch["gt"])
+        self._write_strip(os.path.join(out_dir,
+                                       f"iter{iteration}_recon.png"),
+                          _host(rec["recon"]), batch["gt"],
+                          originals=_host(rec["image"]))
+        with open(os.path.join(out_dir, "disc_scores.txt"), "a") as f:
+            f.write(f"iter {iteration}: real {float(rec['d_real']):.4f} "
+                    f"fake {float(gen['d_fake']):.4f}\n")
+
+    @torch.no_grad()
+    def eval_gen_render(self, label, lens, spaced_len: int, seed: int = 0,
+                        draws: Draws = None) -> Dict:
+        """:meth:`_probe`'s lines and the discriminator's mean score of them
+        (its ``u``'s unchanged)."""
+        img, _, style = self._probe(label, lens, spaced_len, seed, draws)
+        kw = {"style": style} if self.cfg.model.discriminator.cond else {}
+        scores = self.model.discriminate(img, update_u=False, **kw)
+        return {"img": img,
+                "d_fake": sum(x.mean() for x in scores) / len(scores)}
+
+    @torch.no_grad()
+    def _recon_render(self, image, label, lens, width, a_batch: int = 1,
+                      draws: Draws = None) -> Dict:
+        """The batch autoencoded as :meth:`eval_step` does, and the
+        discriminator's mean score of the originals (``u``'s unchanged)."""
+        image, recon, aux, _, _, _ = self._eval_autoencode(
+            image, label, lens, width, a_batch, draws)
+        kw = ({"style": _flat_style(aux["style"])}
+              if self.cfg.model.discriminator.cond else {})
+        scores = self.model.discriminate(image, update_u=False, **kw)
+        return {"recon": recon, "image": image,
+                "d_real": sum(x.mean() for x in scores) / len(scores)}
+
+    @staticmethod
+    def _write_strip(path: str, imgs: np.ndarray, gts,
+                     originals: Optional[np.ndarray] = None,
+                     max_rows: int = 8) -> None:
+        """Up to ``max_rows`` lines ``[B, H, W, 1]`` stacked as one 8-bit
+        grayscale PNG: each line (below its original, white-padded to the
+        line's width, and a grey rule, when ``originals`` are given) and a
+        dark rule under it."""
+        rows = []
+        W = imgs.shape[2]
+        for i in range(min(imgs.shape[0], max_rows)):
+            if originals is not None:
+                o = to_uint8(originals[i])
+                if o.shape[1] < W:
+                    o = np.pad(o, ((0, 0), (0, W - o.shape[1])),
+                               constant_values=255)
+                rows += [o[:, :W], np.full((2, W), 128, np.uint8)]
+            rows += [to_uint8(imgs[i]), np.full((6, W), 60, np.uint8)]
+        write_png_gray(path, np.concatenate(rows))

@@ -1,15 +1,21 @@
 """The iteration loop the trainers share: in-loop validation, checkpoints,
 resume and SIGINT.
 
-Counterpart of the loop in ``HWRTrainer.train`` and ``AutoTrainer.train``
-of ``handwriting_line_generation_tpu/training/``.  A run directory is
-``<trainer.save_dir>/<name>``.  The loop refuses to start a fresh run over
-one that holds checkpoints, resumes from its ``checkpoint-latest`` (and
-the ``train_log.json`` entries up to that step), validates every
-``val_every`` steps and keeps ``model_best`` by the lowest ``val_CER``,
-saves on the config's ``save_step``/``save_step_minor``, and on SIGINT
-finishes the step, writes ``checkpoint-latest`` with ``interrupted: true``
-and leaves the loop.
+Counterpart of the loops in ``HWRTrainer.train``, ``AutoTrainer.train`` and
+``GanTrainer.train`` of ``handwriting_line_generation_tpu/training/``.  A
+run directory is ``<trainer.save_dir>/<name>``.  The loop refuses to start a
+fresh run over one that holds checkpoints, resumes from its
+``checkpoint-latest`` (and the ``train_log.json`` entries up to that step),
+validates every ``val_every`` steps and keeps ``model_best`` by the
+trainer's monitored key (``val_CER`` for the recognizer and the
+autoencoder), saves on the config's ``save_step``/``save_step_minor``, and
+on SIGINT finishes the step, writes ``checkpoint-latest`` with
+``interrupted: true`` and leaves the loop.
+
+A step takes the batch *iterator*: each trainer pulls what its step needs
+(a GAN lesson on generated text pulls none).  The hooks below are how the
+GAN adds its per-log CER, its SWA validation, SWA steps, sample dumps and
+the SWA weights saved beside each checkpoint; they do nothing by default.
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ from __future__ import annotations
 import os
 import signal
 import threading
-from typing import Any, Callable, Dict, Iterable, Optional
+from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,12 +36,13 @@ from handwriting_line_generation_tpu_torch.utils.checkpoint import (
 from handwriting_line_generation_tpu_torch.utils.train_log import TrainLog
 
 
-def validation_batches(valid: Any) -> Iterable[Dict]:
+def validation_batches(valid: Any, seed: int = 0) -> Iterable[Dict]:
     """A fresh pass over ``valid``: a batcher's ``batches`` from the start,
-    unshuffled (as the JAX trainers read their validation batcher), or a
-    re-iterable of batch dicts (a list) as it is."""
+    unshuffled, its side caches drawn from ``default_rng(seed)`` (as the
+    JAX trainers read their validation batcher), or a re-iterable of batch
+    dicts (a list) as it is."""
     if hasattr(valid, "batches"):
-        return valid.batches(np.random.default_rng(0), shuffle=False)
+        return valid.batches(np.random.default_rng(seed), shuffle=False)
     return valid
 
 
@@ -43,9 +50,11 @@ class CheckpointedTrainer:
     """State and loop of a trainer that has ``cfg``, ``model``,
     ``optimizer``, ``scheduler``, ``generator`` (its random draws), ``step``,
     ``init_state(seed)``, ``validate(batches, max_batches)`` and
-    ``_step_metrics(batch, log_step)``."""
+    ``_step_metrics(batch, log_step)`` (or its own :meth:`_train_step`)."""
 
     model: Optional[torch.nn.Module] = None
+    VAL_BATCHES = 10                  # validation batches, as in JAX
+    LOG_AT_VALIDATION = False         # write train_log.json at each one
 
     def state_dict(self) -> Dict[str, Any]:
         """Everything a resumed run needs to continue exactly."""
@@ -62,12 +71,50 @@ class CheckpointedTrainer:
         self.step = int(state["step"])
         self.generator.set_state(state["generator"])
 
-    VAL_BATCHES = 10                  # validation batches, as in JAX
+    def monitor(self) -> Tuple[Optional[str], str]:
+        """The validation key ``model_best`` follows, and ``min``/``max``."""
+        return "val_CER", "min"
 
     def _step_metrics(self, batch: Dict, log_step: bool) -> Dict:
         """One train step on ``batch``; its metrics to log (``log_step``:
         the step is one that ``log_every`` records)."""
         raise NotImplementedError
+
+    def _train_step(self, batches: Iterator[Dict], iteration: int,
+                    log_step: bool) -> Optional[Dict]:
+        """Step ``iteration`` (1-based), pulling its batch from
+        ``batches``; None when they have run out.  Float images are
+        quantized to u8 first when the config's ``u8_transfer`` says so."""
+        batch = next(batches, None)
+        if batch is None:
+            return None
+        image = batch["image"]
+        if (self.cfg.data.u8_transfer and isinstance(image, np.ndarray)
+                and image.dtype != np.uint8):
+            batch = dict(batch, image=quantize_image_u8(image))
+        return self._step_metrics(batch, log_step)
+
+    # -- hooks -------------------------------------------------------------
+
+    def _log_extra(self) -> Dict:
+        """Values recorded as they are (not averaged) at each log step."""
+        return {}
+
+    def _validation(self, valid: Any, val_batches: int) -> Dict:
+        return self.validate(validation_batches(valid), val_batches)
+
+    def _after_step(self, iteration: int, run_dir: str, valid: Any) -> None:
+        """Work after a step's validation and before its checkpoints."""
+
+    def _side_checkpoints(self) -> Tuple[Dict[str, Any], Dict]:
+        """Objects saved beside each checkpoint as ``<name>-<key>``, and
+        metadata added to every checkpoint's."""
+        return {}, {}
+
+    def _resume_side(self, run_dir: str) -> None:
+        """Load the side objects of ``checkpoint-latest`` on resume."""
+
+    # -- loop --------------------------------------------------------------
 
     def train(self, batches: Iterable[Dict],
               iterations: Optional[int] = None,
@@ -79,12 +126,11 @@ class CheckpointedTrainer:
         """Steps ``self.step + 1 .. iterations`` over ``batches`` (stops
         early when they run out), logging each step's metrics, averaged over
         ``log_every`` steps; every ``val_every`` steps (the config's
-        ``val_step`` by default) :meth:`validate` on up to ``val_batches``
+        ``val_step`` by default) validation on up to ``val_batches``
         (``VAL_BATCHES`` by default) of ``valid`` (a batcher or a list of
-        batch dicts), ``model_best`` kept by ``val_CER``.  Float images are
-        quantized to u8 first when the config's ``u8_transfer`` says so.  A
-        resumed run continues from ``checkpoint-latest``'s step, and
-        ``batches`` should continue from there too."""
+        batch dicts), ``model_best`` kept by :meth:`monitor`.  A resumed run
+        continues from ``checkpoint-latest``'s step, and ``batches`` should
+        continue from there too."""
         c = self.cfg
         if self.model is None:
             self.init_state(c.trainer.seed)
@@ -100,7 +146,10 @@ class CheckpointedTrainer:
         ckpt.refuse_clobber(resume)
         if ckpt.has_latest():
             self.load_state_dict(ckpt.latest())
+            self._resume_side(ckpt.directory)
             log.resume_from(log_path, self.step)
+        key, mode = self.monitor()
+        sign = -1.0 if mode == "max" else 1.0
         stop = threading.Event()
         # a handler can be set from the main thread only
         main = threading.current_thread() is threading.main_thread()
@@ -110,34 +159,40 @@ class CheckpointedTrainer:
         it = iter(batches)
         try:
             for i in range(self.step + 1, iterations + 1):
-                batch = next(it, None)
-                if batch is None:
+                metrics = self._train_step(it, i, i % log_every == 0)
+                if metrics is None:
                     break
-                image = batch["image"]
-                if (c.data.u8_transfer and isinstance(image, np.ndarray)
-                        and image.dtype != np.uint8):
-                    batch = dict(batch, image=quantize_image_u8(image))
-                log.step(self._step_metrics(batch, i % log_every == 0))
+                log.step(metrics)
                 if i % log_every == 0:
-                    entry = log.record(i)
+                    entry = log.record(i, self._log_extra())
                     if on_log:
                         on_log(entry)
                 monitor = None
                 if val_every and valid is not None and i % val_every == 0:
-                    val = self.validate(validation_batches(valid),
-                                        val_batches)
+                    val = self._validation(valid, val_batches)
                     log.record(i, val)
                     if on_log:
                         on_log(val)
-                    monitor = val.get("val_CER")
-                ckpt.maybe_save(i, self.state_dict, meta,
+                    if key in val:
+                        monitor = sign * val[key]
+                    if self.LOG_AT_VALIDATION:
+                        log.save(log_path)
+                self._after_step(i, ckpt.directory, valid)
+                side, side_meta = self._side_checkpoints()
+                ckpt.maybe_save(i, self.state_dict, dict(meta, **side_meta),
                                 monitor_value=monitor,
                                 best=lambda: {"model":
-                                              self.model.state_dict()})
+                                              self.model.state_dict()},
+                                extra=side)
                 if stop.is_set():
+                    save = dict(meta, **side_meta, iteration=i,
+                                interrupted=True)
                     save_checkpoint(ckpt.directory, "checkpoint-latest",
-                                    self.state_dict(),
-                                    dict(meta, iteration=i, interrupted=True))
+                                    self.state_dict(), save)
+                    for name, obj in side.items():
+                        save_checkpoint(ckpt.directory,
+                                        f"checkpoint-latest-{name}", obj,
+                                        save)
                     break
         finally:
             if main:

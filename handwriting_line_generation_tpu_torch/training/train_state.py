@@ -17,6 +17,7 @@ Counterpart of ``handwriting_line_generation_tpu/training/train_state.py``:
 * :func:`balance_and_merge` and :func:`multipliers_at` — the saved-gradient
   balancing (arXiv:1903.00277): each saved group's tensor scaled by
   ``x * mean|D| / mean|R|`` before it is added to the dominant gradient.
+* :func:`swa_update`, the running mean of stochastic weight averaging.
 * The style bank (:func:`bank_push`, :func:`bank_sample`) and
   :class:`GanTrainState`.
 
@@ -153,6 +154,15 @@ class PartitionAdam:
         self.scheduler = torch.optim.lr_scheduler.LambdaLR(
             self.optimizer, lambda step: sched(step) / cfg.lr)
 
+    def state_dict(self) -> Dict:
+        """Adam's moments and step counts, and the schedule's position."""
+        return {"optimizer": self.optimizer.state_dict(),
+                "scheduler": self.scheduler.state_dict()}
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.scheduler.load_state_dict(state["scheduler"])
+
     def step(self, grads: Sequence[Optional[torch.Tensor]]) -> None:
         for i in self.index:
             p, g = self.params[i], grads[i]
@@ -245,6 +255,16 @@ def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
     """``sqrt(sum g²)`` over every tensor (``optax.global_norm``)."""
     return torch.linalg.vector_norm(torch.stack(
         torch._foreach_norm([g.float() for g in grads], 2)))
+
+
+def swa_update(swa: Sequence[torch.Tensor], params: Sequence[torch.Tensor],
+               n_averaged: int) -> None:
+    """One stochastic-weight-averaging step, in place: ``swa += (p - swa) /
+    (n_averaged + 1)`` tensor by tensor, the running mean of the parameters
+    after ``n_averaged + 1`` of them."""
+    diff = torch._foreach_sub([p.detach() for p in params], list(swa))
+    torch._foreach_div_(diff, float(n_averaged) + 1.0)
+    torch._foreach_add_(list(swa), diff)
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,8 @@ generator's state), written by ``torch.save`` to ``<name>.pt`` with an
 atomic replace, beside a JSON sidecar ``<name>.json`` of metadata.  Files,
 as there: ``checkpoint-iteration<N>`` every ``save_step``,
 ``checkpoint-latest`` every ``save_step_minor``, and ``model_best`` (the
-model's weights only) when the monitored value improves.
+model's weights only) when the monitored value improves; a trainer's side
+objects (the GAN's SWA weights) go beside each as ``<name>-<key>``.
 
 :func:`extract_subtree` takes one submodule's entries out of a state_dict
 by key prefix (``encoder`` out of an autoencoder's model), the role the
@@ -105,23 +106,28 @@ class CheckpointManager:
 
     def maybe_save(self, iteration: int, state: Callable[[], Any],
                    meta: Dict, monitor_value: Optional[float] = None,
-                   best: Optional[Callable[[], Any]] = None) -> None:
+                   best: Optional[Callable[[], Any]] = None,
+                   extra: Optional[Dict[str, Any]] = None) -> None:
         """Save what is due at ``iteration``.  ``state`` and ``best`` are
         called only when a save needs them: ``state()`` is the full
         checkpoint, ``best()`` what ``model_best`` holds (``state()`` when
-        not given)."""
+        not given).  ``extra`` (the GAN's ``{"swa": ...}``): objects saved
+        beside every checkpoint written here as ``<name>-<key>``."""
         meta = dict(meta, iteration=iteration)
+
+        def save(name: str, obj: Any, meta: Dict) -> None:
+            save_checkpoint(self.directory, name, obj, meta)
+            for key, side in (extra or {}).items():
+                save_checkpoint(self.directory, f"{name}-{key}", side, meta)
+
         if self.save_step and iteration % self.save_step == 0:
-            save_checkpoint(self.directory,
-                            f"checkpoint-iteration{iteration}", state(), meta)
+            save(f"checkpoint-iteration{iteration}", state(), meta)
         if self.save_step_minor and iteration % self.save_step_minor == 0:
-            save_checkpoint(self.directory, "checkpoint-latest", state(),
-                            meta)
+            save("checkpoint-latest", state(), meta)
         if monitor_value is not None and monitor_value < self.best:
             self.best = monitor_value
-            save_checkpoint(self.directory, "model_best",
-                            (best or state)(),
-                            dict(meta, monitor_value=float(monitor_value)))
+            save("model_best", (best or state)(),
+                 dict(meta, monitor_value=float(monitor_value)))
 
     def latest(self) -> Any:
         return load_checkpoint(self.directory, "checkpoint-latest")

@@ -433,6 +433,11 @@ def test_paper_discriminator_forward_backward(cuda):
     assert 0.0 < ms < 1e4
 
 
+GAN_PAPER_LESSONS = [["count"], ["no-step", "gen"], ["auto", "auto-gen"],
+                     ["disc"], ["no-step", "gen"], ["auto", "auto-gen"],
+                     ["disc"]]
+
+
 def _tiny_gan_trainer(cuda):
     from handwriting_line_generation_tpu_torch.config import (
         Config, DataConfig, DiscriminatorConfig, GeneratorConfig, HWRConfig,
@@ -450,7 +455,8 @@ def _tiny_gan_trainer(cuda):
         generator=GeneratorConfig(dim=64),
         discriminator=DiscriminatorConfig(dim=16), spacer=SpacerConfig(dim=32))
     cfg.trainer = TrainerConfig(loss_weights={"reconRecog": 1e-6,
-                                              "genRecog": 1e-4})
+                                              "genRecog": 1e-4},
+                                curriculum={"0": GAN_PAPER_LESSONS})
     tr = GanTrainer(cfg, device=cuda)
     tr.init_state(seed=0)
     return tr
@@ -510,3 +516,126 @@ def test_gan_lessons_kernel_match_plain(cuda, monkeypatch):
                 torch.testing.assert_close(
                     a, b, rtol=0.0, atol=1e-3 * b.abs().max().item(),
                     msg=lambda m: f"{key} {name}: {m}")
+
+
+def _gan_batches(dev, n, seed=3, B=4, W=192, L=12):
+    """``n`` seeded batch dicts of u8 lines on ``dev`` (2 lines an
+    author), with text and fg masks."""
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for _ in range(n):
+        lens = torch.randint(3, L + 1, (B,), generator=g, dtype=torch.int32)
+        label = torch.randint(1, 80, (B, L), generator=g, dtype=torch.int32)
+        label[torch.arange(L)[None, :] >= lens[:, None]] = 0
+        image = torch.randint(0, 256, (B, 64, W, 1), generator=g,
+                              dtype=torch.uint8)
+        out.append(dict(image=image.to(dev), label=label.to(dev),
+                        label_lengths=lens.to(dev),
+                        width=torch.randint(W // 2, W + 1, (B,), generator=g,
+                                            dtype=torch.int32).to(dev),
+                        gt=["abc"] * B, a_batch_size=2,
+                        fg_mask=(image < 128).to(dev)))
+    return out
+
+
+def _flat(x, p=""):
+    if isinstance(x, dict):
+        return [kv for k, v in x.items() for kv in _flat(v, f"{p}/{k}")]
+    if isinstance(x, (list, tuple)):
+        return [kv for k, v in enumerate(x) for kv in _flat(v, f"{p}/{k}")]
+    return [(p, x)]
+
+
+def _assert_states_equal(a, b):
+    fa, fb = _flat(a), _flat(b)
+    assert [k for k, _ in fa] == [k for k, _ in fb]
+    for (k, x), (_, y) in zip(fa, fb):
+        if isinstance(x, torch.Tensor):
+            assert torch.equal(x.cpu(), y.cpu()), k
+        else:
+            assert x == y, k
+
+
+def test_gan_state_dict_round_trip_on_card(cuda, tmp_path):
+    """A GAN state on the card mid-curriculum (saved groups held, the bank
+    filling) through ``save_checkpoint``/``load_checkpoint`` into a fresh
+    trainer: every tensor and number equal."""
+    from handwriting_line_generation_tpu_torch.utils import checkpoint
+    tr = _tiny_gan_trainer(cuda)
+    it = iter(_gan_batches(cuda, 3))
+    for i in range(5):
+        tr.run_lesson(tr.curriculum.get_lesson(i), it, iteration=i)
+    assert tr.state.have_saved and tr.state.bank_count == 2
+    checkpoint.save_checkpoint(str(tmp_path), "x", tr.state_dict())
+    other = _tiny_gan_trainer(cuda)
+    other.load_state_dict(checkpoint.load_checkpoint(str(tmp_path), "x"))
+    assert other.state.style_bank.device == tr.state.style_bank.device
+    _assert_states_equal(tr.state_dict(), other.state_dict())
+
+
+def test_gan_eval_step_card_matches_cpu(cuda):
+    """``eval_step`` of the same weights and noise planes on the card and
+    on the CPU (TF32 off): each loss within 1e-3 relative."""
+    g = torch.Generator().manual_seed(4)
+    T = 48
+    shapes = [(4, h, w, 1) for h, w in [(4, T)] * 2 + [(8, T)] * 2
+              + [(16, T)] * 2 + [(32, 2 * T)] * 2 + [(64, 4 * T)] * 2]
+    noise = [torch.randn(s, generator=g) for s in shapes]
+    batch = _gan_batches("cpu", 1)[0]
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        tr = _tiny_gan_trainer(dev)
+        args = [batch[k].to(dev) for k in ("image", "label", "label_lengths",
+                                           "width")]
+        outs.append(tr.eval_step(*args, 2, {"noise": [n.to(dev)
+                                                      for n in noise]}))
+    card, cpu = outs
+    assert {k for k in card if k.startswith("val_")} == {
+        "val_autoLoss", "val_perceptualLoss", "val_countLoss"}
+    for k, v in cpu.items():
+        if k.startswith("val_"):
+            torch.testing.assert_close(card[k].cpu(), v, rtol=1e-3, atol=0.0)
+
+
+def test_gan_train_lessons_launch_the_ctc_kernel(cuda, tmp_path,
+                                                 monkeypatch):
+    """Four iterations of ``GanTrainer.train`` on the card (count, gen,
+    auto, disc), with a validation and a sample dump at the fourth: the
+    CTC kernel launches once in each gen and auto lesson and nowhere else."""
+    tr = _tiny_gan_trainer(cuda)
+    c = tr.cfg.trainer
+    c.save_dir, c.val_step, c.print_every = str(tmp_path), 4, 4
+    c.log_step, c.save_step, c.save_step_minor = 4, 10 ** 9, 4
+    launches, run = [], tr.run_lesson
+
+    def counted(*a, **k):
+        n = ctc.ctc_loss_cuda.launches
+        out = run(*a, **k)
+        launches.append(ctc.ctc_loss_cuda.launches - n)
+        return out
+    monkeypatch.setattr(tr, "run_lesson", counted)
+    batches = _gan_batches(cuda, 3)
+    n = ctc.ctc_loss_cuda.launches
+    log = tr.train(iter(batches), iterations=4, valid=batches[:1],
+                   val_batches=1)
+    assert launches == [0, 1, 1, 0] and ctc.ctc_loss_cuda.launches - n == 2
+    assert {"val_gen_CER", "CER"} <= {k for e in log.entries for k in e}
+    assert (tmp_path / tr.cfg.name / "samples" / "iter4_gen.png").exists()
+
+
+def test_gan_train_resume_on_card(cuda, tmp_path):
+    """``checkpoint-latest`` written by ``train`` on the card and read by a
+    fresh trainer's ``train``: its state equals the writer's, and it goes
+    on from there (lesson 4 pulls the third batch)."""
+    batches = _gan_batches(cuda, 3)
+    trs = []
+    for _ in range(2):
+        tr = _tiny_gan_trainer(cuda)
+        c = tr.cfg.trainer
+        c.save_dir, c.val_step, c.print_every = str(tmp_path), 0, 0
+        c.save_step, c.save_step_minor = 10 ** 9, 3
+        tr.train(iter(batches), iterations=3)
+        trs.append(tr)
+    _assert_states_equal(trs[0].state_dict(), trs[1].state_dict())
+    trs[1].train(iter(batches[2:]), iterations=4)
+    assert trs[1].step == 4
