@@ -96,9 +96,32 @@ Phases, in order; any failure exits non-zero:
     peak device memory;
 13. under ``torch.profiler``, one CUDA launch per epilogue call (9 in a
     generation forward);
-14. summary — one JSON line of kernels (the CTC kernel once for each
-    path that runs it, with that path's launches and main-bucket times),
-    then the device line last.
+14. training from a config — the port's CLI
+    (``handwriting_line_generation_tpu_torch.train.main``) on the card at
+    the configs' full model widths: first ``render_line_hard`` renders a
+    second, ``read_png_gray``'s ms a fixture page by its row pass and by
+    the wavefront pass (the two held equal), and ``make_batcher``'s ms per
+    batch (``iam_lines``, ``iam_author`` with fg masks, ``syn_hwr3``) from
+    cold; then ``configs/iam_hwr.json`` over ``tests/fixtures/mini_iam``
+    (B = 4) for 30 steps and a validation (finite, falling loss), ``-r -i
+    40`` going on from step 30; its trained lines/s in alternated blocks
+    of 100 steps each: through the CLI, through ``HWRTrainer.train`` on
+    the same iterator's batches assembled first (through a
+    ``Prefetcher``, and handed directly), and ``train_step`` alone on
+    them (as host u8 arrays, and on the card); the loop's idle share from
+    two profiled CLI runs of different lengths (their difference,
+    start-up cancelled);
+    ``iam_auto_2tight`` for 20 steps and a validation;
+    ``iam_gan_paper`` for 14 lessons on those two checkpoints
+    (``-a data.text_data=``: the built-in text) with a validation; and
+    ``syn_hwr3`` for 10 steps on the v3 synthetic corpus rendered on the
+    fly (lines/s against ``train_step`` on pre-rendered batches, and the
+    loop's idle share as above); every stage's CTC launches counted
+    exactly, and the kernel against its plain version and timed at each
+    stage's shape;
+15. summary — one JSON line of kernels (the CTC kernel once for each
+    path that runs it, with that path's launches and main-bucket times;
+    the CLI's stages at their own shapes), then the device line last.
 
 Imports nothing of JAX.  Exits non-zero without a CUDA device.
 """
@@ -107,10 +130,12 @@ import itertools
 import json
 import math
 import pathlib
+import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM memory rate
 F32_OPS_PER_S = 67e12              # H100 SXM float32 outside tensor cores
@@ -872,34 +897,6 @@ def gan_phase(torch, tt, F, ctc, card, hwr_ckpt, auto_ckpt):
     return launches, err, times
 
 
-def read_png_gray(path):
-    """The pixels ``[H, W]`` of an 8-bit grayscale PNG whose rows are
-    unfiltered (what the port's sample strips are), decoded with zlib."""
-    import struct
-    import zlib
-
-    import numpy as np
-    data = pathlib.Path(path).read_bytes()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise AssertionError(f"{path} is not a PNG")
-    pos, idat, size = 8, b"", None
-    while pos < len(data):
-        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + n]
-        pos += 12 + n
-        if tag == b"IHDR":
-            size = struct.unpack(">IIBB", body[:10])
-        elif tag == b"IDAT":
-            idat += body
-    W, H, depth, color = size
-    if (depth, color) != (8, 0):
-        raise AssertionError(f"{path}: depth {depth}, color type {color}")
-    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(H, W + 1)
-    if rows[:, 0].any():
-        raise AssertionError(f"{path}: a row is filtered")
-    return rows[:, 1:]
-
-
 def _copy_run_at(batches, pull, src, dst):
     """``batches``, copying the run directory ``src`` to ``dst`` when the
     ``pull``-th batch is asked for: the run as it stood after the lesson
@@ -949,6 +946,7 @@ def gan_train_main_path(torch, ctc, tg, hwr_ckpt, auto_ckpt, run_dir):
     to ``run_dir``/b and a fresh trainer resumes it to the end.  Returns
     (CTC launches, the first trainer, batches, validation batches)."""
     from handwriting_line_generation_tpu_torch.utils import checkpoint as ck
+    from handwriting_line_generation_tpu_torch.utils.png import read_png_gray
 
     def trainer(save_dir):
         tr = tg.trainer(DEVICE, seed=0, pretrained_hwr=hwr_ckpt,
@@ -1024,7 +1022,8 @@ def gan_train_main_path(torch, ctc, tg, hwr_ckpt, auto_ckpt, run_dir):
                 ("gen", (B * (H + 6), 4 * T), [(H, H + 6, 60)]),
                 ("recon", (B * (2 * H + 8), tg.tt.W),
                  [(H, H + 2, 128), (2 * H + 2, 2 * H + 8, 60)])):
-            px = read_png_gray(run_a / "samples" / f"iter{it}_{kind}.png")
+            px = read_png_gray(str(run_a / "samples" /
+                                   f"iter{it}_{kind}.png"))
             if px.shape != shape or not all((px[a:b] == v).all()
                                             for a, b, v in rules):
                 raise AssertionError(f"strip iter{it}_{kind}: {px.shape}, "
@@ -1171,6 +1170,426 @@ def gan_train_phase(torch, ctc, card, hwr_ckpt, auto_ckpt, run_dir):
     del tr
     torch.cuda.empty_cache()
     return launches
+
+
+CLI_FIXTURE = REPO / "tests" / "fixtures" / "mini_iam"
+CLI_BATCH = 4                      # the fixture's 8 training lines: 2 a batch
+CLI_LOG = 10                       # log_step of the HWR and autoencoder runs
+CLI_HWR_STEPS, CLI_HWR_RESUME_TO = 30, 40
+CLI_AUTO_STEPS, CLI_GAN_LESSONS, CLI_SYN_STEPS = 20, 14, 10
+CLI_RENDERS = 24                   # render_line_hard lines timed
+CLI_PNG_READS = 5                  # decodes of each fixture page timed
+CLI_TIMED_BATCHES = {"iam_lines": 8, "iam_author": 8, "syn_hwr3": 3}
+CLI_TIMED_STEPS = 100              # steps of each timed arm, after warm-up
+CLI_TIMING_BLOCKS = 5              # alternated blocks of the iam_hwr arms
+CLI_SYN_DISTINCT = 4               # pre-rendered syn_hwr3 batches, cycled
+CLI_IDLE_STEPS = {"iam_hwr": (CLI_LOG, CLI_LOG + CLI_TIMED_STEPS),
+                  "syn_hwr3": (2, CLI_SYN_STEPS)}
+
+
+def _config(name, overrides):
+    from handwriting_line_generation_tpu_torch.config import (
+        apply_overrides, load_config,
+    )
+    return apply_overrides(load_config(str(REPO / "configs" / name)),
+                           overrides)
+
+
+def _pairs(overrides):
+    return [a for ov in overrides for a in ("-a", ov)]
+
+
+def _cli_run(torch, ctc, cli, name, root, overrides, *flags, prof=False):
+    """``train.main`` on the card; returns (CTC launches, seconds, device
+    busy seconds or None)."""
+    from torch.profiler import ProfilerActivity, profile
+    from handwriting_line_generation_tpu_torch.trace_forward import \
+        _device_us
+    argv = ["-c", str(REPO / "configs" / name), "--device", DEVICE,
+            *_pairs([f"trainer.save_dir={root}", *overrides]), *flags]
+    print("train " + " ".join(argv[2:]), flush=True)
+    ctc.ctc_loss_cuda.launches = 0
+    busy = None
+    if prof:                            # device activity only: no op records
+        with profile(activities=[ProfilerActivity.CUDA]) as p:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = cli.main(argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        busy = sum(_device_us(e) for e in p.key_averages() if
+                   e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+        if not busy > 0:
+            raise AssertionError(f"the profiler saw no device time in "
+                                 f"train -c {name}")
+    else:
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"train -c {name} exited {rc}")
+    launches = ctc.ctc_loss_cuda.launches
+    torch.cuda.empty_cache()
+    return launches, secs, busy
+
+
+def _split_log(run_dir):
+    log = json.loads((run_dir / "train_log.json").read_text())
+    steps = [e for e in log if not any(k.startswith("val_") for k in e)]
+    vals = [e for e in log if any(k.startswith("val_") for k in e)]
+    return steps, vals
+
+
+def _val_batches(cfg, trainer_cls):
+    """The batches one validation of ``cfg`` reads: the CTC kernel's
+    launches in it for the HWR and autoencoder trainers."""
+    from handwriting_line_generation_tpu_torch.data import datasets as D
+    from handwriting_line_generation_tpu_torch.training.loop import \
+        validation_batches
+    return sum(1 for _ in itertools.islice(
+        validation_batches(D.make_batcher(cfg.data, "valid")),
+        trainer_cls.VAL_BATCHES))
+
+
+def _finite(entries, what):
+    bad = [e for e in entries for v in e.values()
+           if isinstance(v, float) and not math.isfinite(v)]
+    if bad or not entries:
+        raise AssertionError(f"{what}: missing or not finite: {bad}")
+
+
+def cli_data_rates(card):
+    """Host rates of the record sources: ``render_line_hard`` renders a
+    second, ms a fixture page of ``read_png_gray`` by each unfilter pass,
+    and ms per batch of ``make_batcher`` (pages decoded and lines rendered
+    from cold)."""
+    from handwriting_line_generation_tpu_torch.charset import IAM_CHARSET
+    from handwriting_line_generation_tpu_torch.data import datasets as D
+    from handwriting_line_generation_tpu_torch.data.synthetic import \
+        SyntheticCorpus
+    from handwriting_line_generation_tpu_torch.utils import png
+    corpus = SyntheticCorpus(CLI_RENDERS, 1, IAM_CHARSET, 64, seed=11,
+                             version=3)
+    t0 = time.perf_counter()
+    for i in range(CLI_RENDERS):
+        corpus.get(i)
+    dt = time.perf_counter() - t0
+    print(f"render_line_hard (v3, one host thread): {CLI_RENDERS / dt:.2f} "
+          f"renders/s ({dt / CLI_RENDERS * 1e3:.1f} ms a line) {card}",
+          flush=True)
+    # the fixture's pages (every row Sub) by the row pass, and by the
+    # wavefront pass that pages with Average or Paeth rows take
+    for path in sorted((CLI_FIXTURE / "forms").glob("*.png")):
+        ms, pages = [], []
+        for unfilter in (png._unfilter_rows, png._unfilter_wavefront):
+            with mock.patch.object(png, "_unfilter_rows", unfilter):
+                t0 = time.perf_counter()
+                for _ in range(CLI_PNG_READS):
+                    page = png.read_png_gray(str(path))
+                ms.append((time.perf_counter() - t0) / CLI_PNG_READS * 1e3)
+            pages.append(page)
+        if not (pages[0] == pages[1]).all():
+            raise AssertionError(f"{path.name}: the two passes disagree")
+        print(f"read_png_gray {path.name} {pages[0].shape}: {ms[0]:.2f} ms "
+              f"(row pass), {ms[1]:.2f} ms (wavefront pass) {card}",
+              flush=True)
+    fixture = [f"data.data_dir={CLI_FIXTURE}"]
+    rates = {}
+    for label, name, overrides in (
+            ("iam_lines", "iam_hwr.json",
+             fixture + [f"data.batch_size={CLI_BATCH}"]),
+            ("iam_author", "iam_gan_paper.json", fixture),
+            ("syn_hwr3", "syn_hwr3.json", [])):
+        cfg = _config(name, overrides)
+        D._imread_gray.cache_clear()
+        it = D.forever(D.make_batcher(cfg.data, "train"),
+                       seed=cfg.trainer.seed)
+        n = CLI_TIMED_BATCHES[label]
+        t0 = time.perf_counter()
+        batches = [next(it) for _ in range(n)]
+        ms = (time.perf_counter() - t0) / n * 1e3
+        b = batches[0]
+        fg = " with fg masks" if "fg_mask" in b else ""
+        print(f"make_batcher {label}: {ms:.2f} ms per batch of "
+              f"{len(b['gt'])} lines{fg}, image {b['image'].shape} "
+              f"(from cold, {n} batches) {card}", flush=True)
+        rates[label] = ms
+    return rates
+
+
+def _host_batches(cfg, n):
+    """The first ``n`` batches of the CLI's training iterator over ``cfg``,
+    as ``make_batcher`` gives them (float images)."""
+    from handwriting_line_generation_tpu_torch.data import datasets as D
+    it = D.forever(D.make_batcher(cfg.data, "train"), seed=cfg.trainer.seed)
+    return [next(it) for _ in range(n)]
+
+
+def _step_rate(torch, tr, batches, on_card):
+    """Trained lines/s of ``train_step`` alone: ``CLI_TIMED_STEPS`` over
+    ``batches`` (cycled) after 2 warm-ups, host clock, synchronized; the
+    images as the loop hands them (u8), on the card or as host arrays."""
+    from handwriting_line_generation_tpu_torch.ops.augment import \
+        quantize_image_u8
+    data = [[quantize_image_u8(b["image"]), b["label"], b["label_lengths"],
+             b["width"]] for b in batches]
+    if on_card:
+        data = [[torch.as_tensor(a).to(DEVICE) for a in d] for d in data]
+    for d in data[:2]:
+        tr.train_step(*d)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(CLI_TIMED_STEPS):
+        tr.train_step(*data[i % len(data)])
+    torch.cuda.synchronize()
+    return (len(batches[0]["gt"]) * CLI_TIMED_STEPS
+            / (time.perf_counter() - t0))
+
+
+def _window_rate(entries, B):
+    """Lines/s over the log windows after the first (warm-up) one: B / the
+    mean ``sec_per_iter``; each window ends at a log step's decode, which
+    waits for the card."""
+    spi = [e["sec_per_iter"] for e in entries[1:]]
+    return B * len(spi) / sum(spi)
+
+
+def _spread(rates):
+    return (f"median {statistics.median(rates):.1f} (min {min(rates):.1f}, "
+            f"max {max(rates):.1f}; " + ", ".join(f"{r:.1f}" for r in rates)
+            + ")")
+
+
+def _loop_idle(torch, ctc, cli, name, root, overrides, steps, card):
+    """The CLI loop's idle share with start-up cancelled: two profiled runs
+    of ``steps`` = (short, long) iterations; 1 - (busy difference) / (wall
+    difference).  Returns the share; prints it beside the profiled lines/s
+    of the difference (the profiler's cost, against the unprofiled rate)."""
+    walls, busys = [], []
+    for n in steps:
+        _, secs, busy = _cli_run(
+            torch, ctc, cli, name, root / f"idle{n}", overrides, "-i", str(n),
+            prof=True)
+        walls.append(secs)
+        busys.append(busy)
+    wall, busy = walls[1] - walls[0], busys[1] - busys[0]
+    B = _config(name, overrides).data.batch_size
+    rate = B * (steps[1] - steps[0]) / wall
+    print(f"{name[:-len('.json')]} loop, profiled runs of {steps[0]} and "
+          f"{steps[1]} iterations: {walls[0]:.3f}, {walls[1]:.3f} s wall, "
+          f"device busy "
+          f"{busys[0]:.3f}, {busys[1]:.3f} s; the {steps[1] - steps[0]} "
+          f"steps between: {wall:.3f} s, busy {busy:.3f} s, idle share "
+          f"{1 - busy / wall:.3f} (whole calls {1 - busys[0] / walls[0]:.3f},"
+          f" {1 - busys[1] / walls[1]:.3f}), {rate:.1f} lines/s under the "
+          f"profiler {card}", flush=True)
+    return 1 - busy / wall
+
+
+def hwr_cli_timing(torch, ctc, cli, root, overrides, card):
+    """``iam_hwr`` at B = 4: trained lines/s of five arms in
+    ``CLI_TIMING_BLOCKS`` blocks of ``CLI_TIMED_STEPS`` steps each,
+    alternated (ABCDE, EDCBA, ...): the CLI (log windows after a warm-up
+    one; the record sources assemble its batches on the prefetch thread),
+    ``HWRTrainer.train`` over the same iterator's batches assembled first,
+    handed through a ``Prefetcher`` (the thread without the assembly) and
+    directly (the loop alone), and ``train_step`` alone on them as host
+    u8 arrays and on the card."""
+    from handwriting_line_generation_tpu_torch.data.datasets import \
+        Prefetcher
+    from handwriting_line_generation_tpu_torch.training.hwr_trainer import \
+        HWRTrainer
+    n = CLI_LOG + CLI_TIMED_STEPS
+    timed = overrides + [f"trainer.log_step={CLI_LOG}", "trainer.val_step=0"]
+    cfg = _config("iam_hwr.json", timed)
+    B = cfg.data.batch_size
+    batches = _host_batches(cfg, n)
+    step_tr = HWRTrainer(cfg, device=DEVICE)
+    step_tr.init_state(seed=0)
+
+    def cli_arm(k):
+        _cli_run(torch, ctc, cli, "iam_hwr.json", root / f"timing{k}",
+                 timed, "-i", str(n))
+        steps, _ = _split_log(root / f"timing{k}" / "iam_hwr")
+        return _window_rate(steps, B)
+
+    def loop_arm(k, thread):
+        c = _config("iam_hwr.json", timed + [
+            f"trainer.save_dir={root / f'loop{k}{thread}'}"])
+        tr = HWRTrainer(c, device=DEVICE)
+        it = Prefetcher(iter(batches)) if thread else iter(batches)
+        log = tr.train(it, iterations=n, resume=False)
+        torch.cuda.synchronize()
+        if thread:
+            it.close()
+        del tr
+        return _window_rate(log.entries, B)
+
+    arms = {"CLI": cli_arm,
+            "train loop through a Prefetcher": lambda k: loop_arm(k, True),
+            "train loop": lambda k: loop_arm(k, False),
+            "train_step on host u8": lambda k: _step_rate(
+                torch, step_tr, batches, False),
+            "train_step on the card": lambda k: _step_rate(
+                torch, step_tr, batches, True)}
+    rates = {a: [] for a in arms}
+    order = list(arms)
+    for k in range(CLI_TIMING_BLOCKS):
+        for a in (order if k % 2 == 0 else order[::-1]):
+            rates[a].append(arms[a](k))
+    del step_tr
+    torch.cuda.empty_cache()
+    for a, r in rates.items():
+        print(f"iam_hwr B={B} {a}: trained lines/s over {CLI_TIMED_STEPS} "
+              f"steps a block, {CLI_TIMING_BLOCKS} alternated blocks: "
+              f"{_spread(r)} {card}", flush=True)
+    return rates
+
+
+def cli_phase(torch, tt, F, ctc, card, root):
+    """Phase 14.  Returns the kernels-line rows of the CLI's CTC paths."""
+    from handwriting_line_generation_tpu_torch import train as cli
+    from handwriting_line_generation_tpu_torch.data import datasets as D
+    from handwriting_line_generation_tpu_torch.training.auto_trainer import \
+        AutoTrainer
+    from handwriting_line_generation_tpu_torch.training.hwr_trainer import \
+        HWRTrainer
+    from handwriting_line_generation_tpu_torch.utils.checkpoint import \
+        load_meta
+    root = pathlib.Path(root)
+    cli_data_rates(card)
+    fixture = [f"data.data_dir={CLI_FIXTURE}"]
+    small = fixture + [f"data.batch_size={CLI_BATCH}"]
+    launches = {}
+
+    # iam_hwr: 30 steps and a validation, then -r to 40
+    hwr = small + [f"trainer.log_step={CLI_LOG}",
+                   f"trainer.val_step={CLI_HWR_STEPS}"]
+    n, secs, _ = _cli_run(torch, ctc, cli, "iam_hwr.json", root,
+                          hwr + [f"trainer.save_step_minor={CLI_HWR_STEPS}"],
+                          "-i", str(CLI_HWR_STEPS))
+    steps, vals = _split_log(root / "iam_hwr")
+    _finite(steps + vals, "iam_hwr log")
+    losses = [e["loss"] for e in steps]
+    print(f"CLI iam_hwr: {secs:.1f} s, losses "
+          + " ".join(f"{v:.4f}" for v in losses)
+          + f"; validation {vals}; ctc launches {n}", flush=True)
+    expect = CLI_HWR_STEPS + _val_batches(_config("iam_hwr.json", small),
+                                          HWRTrainer)
+    if not (losses[-1] < losses[0] and len(vals) == 1) or n != expect:
+        raise AssertionError(f"iam_hwr through the CLI: loss not falling, "
+                             f"no validation, or {n} CTC launches where "
+                             f"{expect} were due (a step and a validation "
+                             f"batch each)")
+    hwr_launches = n
+    n, secs, _ = _cli_run(torch, ctc, cli, "iam_hwr.json", root,
+                          hwr + [f"trainer.save_step_minor={CLI_LOG}"], "-r",
+                          "-i", str(CLI_HWR_RESUME_TO))
+    steps, _ = _split_log(root / "iam_hwr")
+    meta = load_meta(str(root / "iam_hwr"), "checkpoint-latest")
+    its = [e["iteration"] for e in steps]
+    print(f"CLI iam_hwr -r -i {CLI_HWR_RESUME_TO}: {secs:.2f} s, log "
+          f"iterations {its}, checkpoint-latest at {meta['iteration']}, "
+          f"ctc launches {n}", flush=True)
+    if its != list(range(CLI_LOG, CLI_HWR_RESUME_TO + 1, CLI_LOG)) \
+            or meta["iteration"] != CLI_HWR_RESUME_TO \
+            or n != CLI_HWR_RESUME_TO - CLI_HWR_STEPS:
+        raise AssertionError("the resumed iam_hwr run did not go on from "
+                             f"step {CLI_HWR_STEPS}")
+    launches["iam_hwr"] = hwr_launches + n
+    hwr_cli_timing(torch, ctc, cli, root, small, card)
+    _loop_idle(torch, ctc, cli, "iam_hwr.json", root,
+               small + [f"trainer.log_step={CLI_LOG}", "trainer.val_step=0"],
+               CLI_IDLE_STEPS["iam_hwr"], card)
+
+    # iam_auto_2tight: 20 steps and a validation
+    n, secs, _ = _cli_run(torch, ctc, cli, "iam_auto_2tight.json", root,
+                          small + [f"trainer.log_step={CLI_LOG}",
+                                   f"trainer.val_step={CLI_AUTO_STEPS}",
+                                   f"trainer.save_step_minor="
+                                   f"{CLI_AUTO_STEPS}"],
+                          "-i", str(CLI_AUTO_STEPS))
+    steps, vals = _split_log(root / "iam_auto_2tight")
+    _finite(steps + vals, "iam_auto_2tight log")
+    print(f"CLI iam_auto_2tight: {secs:.1f} s, log {steps}, validation "
+          f"{vals}; ctc launches {n}", flush=True)
+    expect = CLI_AUTO_STEPS + _val_batches(
+        _config("iam_auto_2tight.json", small), AutoTrainer)
+    if n != expect or len(vals) != 1:
+        raise AssertionError(f"iam_auto_2tight through the CLI: {n} CTC "
+                             f"launches where {expect} were due")
+    launches["iam_auto_2tight"] = n
+
+    # iam_gan_paper: 14 lessons on the two checkpoints above
+    n, secs, _ = _cli_run(
+        torch, ctc, cli, "iam_gan_paper.json", root, fixture + [
+            f"model.pretrained_hwr={root}/iam_hwr/checkpoint-latest",
+            f"trainer.encoder_weights={root}/iam_auto_2tight/"
+            "checkpoint-latest",
+            "data.text_data=", "trainer.log_step=7",
+            f"trainer.val_step={CLI_GAN_LESSONS}", "trainer.save_step_minor=7"],
+        "-i", str(CLI_GAN_LESSONS))
+    steps, vals = _split_log(root / "iam_gan_paper")
+    _finite(steps + vals, "iam_gan_paper log")
+    meta = load_meta(str(root / "iam_gan_paper"), "checkpoint-latest")
+    print(f"CLI iam_gan_paper: {secs:.1f} s, log {steps}, validation "
+          f"{vals}; checkpoint-latest at {meta['iteration']}; ctc launches "
+          f"{n}", flush=True)
+    # genRecog and reconRecog twice a 7-lesson cycle, none in validation
+    expect = 4 * CLI_GAN_LESSONS // 7
+    if n != expect or len(vals) != 1 \
+            or meta["iteration"] != CLI_GAN_LESSONS:
+        raise AssertionError(f"iam_gan_paper through the CLI: {n} CTC "
+                             f"launches where {expect} were due")
+    launches["iam_gan_paper"] = n
+
+    # syn_hwr3: 10 steps on the v3 synthetic corpus, rendered on the fly
+    syn = [f"trainer.log_step={CLI_SYN_STEPS}",
+           f"trainer.save_step_minor={CLI_SYN_STEPS}"]
+    n, secs, _ = _cli_run(torch, ctc, cli, "syn_hwr3.json", root, syn,
+                          "-i", str(CLI_SYN_STEPS))
+    steps, _ = _split_log(root / "syn_hwr3")
+    _finite(steps, "syn_hwr3 log")
+    meta = load_meta(str(root / "syn_hwr3"), "checkpoint-latest")
+    cfg = _config("syn_hwr3.json", [])
+    syn_rate = cfg.data.batch_size / steps[-1]["sec_per_iter"]
+    tr = HWRTrainer(cfg, device=DEVICE)
+    tr.init_state(seed=0)
+    pre = _host_batches(cfg, CLI_SYN_DISTINCT)
+    alone, alone_host = (_step_rate(torch, tr, pre, True),
+                         _step_rate(torch, tr, pre, False))
+    del tr
+    torch.cuda.empty_cache()
+    print(f"CLI syn_hwr3: {secs:.1f} s, log {steps}; checkpoint-latest at "
+          f"{meta['iteration']}; ctc launches {n}; {syn_rate:.1f} trained "
+          f"lines/s through the CLI (first epoch, lines rendered on the "
+          f"fly); train_step alone on {CLI_SYN_DISTINCT} pre-rendered "
+          f"batches, {CLI_TIMED_STEPS} steps: {alone:.1f} (on the card), "
+          f"{alone_host:.1f} (host u8 arrays) {card}", flush=True)
+    if n != CLI_SYN_STEPS or meta["iteration"] != CLI_SYN_STEPS:
+        raise AssertionError("syn_hwr3 through the CLI")
+    launches["syn_hwr3"] = n
+    _loop_idle(torch, ctc, cli, "syn_hwr3.json", root,
+               [f"trainer.log_step={CLI_SYN_STEPS}"],
+               CLI_IDLE_STEPS["syn_hwr3"], card)
+
+    # the CTC kernel at each stage's shape (its first batch's buckets)
+    rows = []
+    for name, overrides, frames in (
+            ("iam_hwr", small, 4), ("iam_auto_2tight", small, 8),
+            ("iam_gan_paper", fixture, 4), ("syn_hwr3", [], 4)):
+        cfg = _config(name + ".json", overrides)
+        b = next(D.forever(D.make_batcher(cfg.data, "train")))
+        B, T, L = len(b["gt"]), b["image"].shape[2] // frames, \
+            b["label"].shape[1]
+        if name == "iam_gan_paper":        # genRecog, the longest frames
+            T, L = cfg.model.max_gen_length, max(cfg.data.label_buckets)
+        err = check_ctc(torch, ctc, T, L, seed=T + L, batch=B)
+        rows.append((f"CLI {name}", (B, T, L), launches[name], err,
+                     time_ctc(torch, tt, F, ctc, T, L, card, batch=B)))
+    return rows
+
 
 
 def main():
@@ -1372,13 +1791,12 @@ def main():
     # CTC kernel at the same buckets
     run_launches = gan_train_phase(torch, ctc, card, str(hwr_ckpt),
                                    str(auto_ckpt), ckpts.name)
-    ckpts.cleanup()
     print(f"ctc launches on the main paths: HWR training {ctc_launches}, "
           f"autoencoder pretraining {auto_launches}, GAN training "
           f"{gan_launches}, GAN training run {run_launches}", flush=True)
 
-    # 13. one CUDA launch per epilogue call, seen by the profiler (last, so
-    # that its hooks touch no timed phase), on a small paper-width session
+    # 13. one CUDA launch per epilogue call, seen by the profiler, on a small
+    # paper-width session
     small, s_labels, s_lens, s_styles = bench.build(CHECK_BATCH)
     cuda_launches = count_device_kernels(
         torch, "epilogue_kernel", lambda: small.forward(
@@ -1388,8 +1806,15 @@ def main():
     if cuda_launches != 9:
         raise AssertionError(f"expected one CUDA launch per epilogue call, "
                              f"9 per forward; got {cuda_launches}")
+    del small
 
-    # 14. summary
+    # 14. training from a config: the port's train CLI over the mini-IAM
+    # fixture and the synthetic corpus, each stage through the CTC kernel
+    cli_rows = cli_phase(torch, tt, F, ctc, card,
+                         pathlib.Path(ckpts.name, "cli"))
+    ckpts.cleanup()
+
+    # 15. summary
     print(smi)
     # the CTC kernel once per path that runs it: each entry's launches come
     # from that path's run, its times from that path's main bucket
@@ -1401,7 +1826,7 @@ def main():
         ("GAN training", (4,) + GAN_CTC_BUCKETS[0], gan_launches, gan_err,
          gan_t),
         ("GAN training run", (4,) + GAN_CTC_BUCKETS[0], run_launches,
-         gan_err, gan_t)]
+         gan_err, gan_t)] + cli_rows
     print(json.dumps({"kernels": [{
         "name": "gen_epilogue", "route": "cuda",
         "source": "handwriting_line_generation_tpu_torch/csrc/gen_epilogue.cu",

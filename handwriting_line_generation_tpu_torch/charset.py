@@ -1,14 +1,15 @@
 """Character sets, label <-> string codecs and greedy CTC decoding.
 
-A copy of ``handwriting_line_generation_tpu/charset.py``'s ``Charset``,
-``IAM_CHARSET``, ``RIMES_CHARSET`` and greedy decoders (the port imports
-nothing of the JAX package).  Index 0 is the CTC blank; characters are
+A copy of ``handwriting_line_generation_tpu/charset.py``'s ``Charset``
+(with ``load``), ``IAM_CHARSET``, ``RIMES_CHARSET`` and greedy decoders
+(the port imports nothing of the JAX package).  Index 0 is the CTC blank; characters are
 indexed from 1, so ``num_class == len(chars) + 1``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Dict, List, Sequence
 
 import numpy as np
@@ -69,20 +70,29 @@ class Charset:
                 out.append(table[v])
         return "".join(out)
 
+    @staticmethod
+    def load(path: str) -> "Charset":
+        """Read a charset JSON (``idx_to_char``: index 1..n -> character),
+        the reference's schema and the JAX package's."""
+        with open(path) as f:
+            payload = json.load(f)
+        idx_to_char = {int(k): v for k, v in payload["idx_to_char"].items()}
+        chars = "".join(idx_to_char[i] for i in range(1, len(idx_to_char) + 1))
+        return Charset(chars)
+
 
 IAM_CHARSET = Charset(IAM_CHARS)
 RIMES_CHARSET = Charset(RIMES_CHARS)
 
 
 def get_charset(name: str) -> Charset:
-    """``DataConfig.charset``: ``iam`` or ``rimes`` (the JAX package also
-    reads a charset JSON file; the port does not yet)."""
+    """``DataConfig.charset``: ``iam``, ``rimes`` or the path of a charset
+    JSON (:meth:`Charset.load`)."""
     if name == "iam":
         return IAM_CHARSET
     if name == "rimes":
         return RIMES_CHARSET
-    raise ValueError(f"unknown charset {name!r} (the port knows 'iam' and "
-                     f"'rimes')")
+    return Charset.load(name)
 
 
 def _collapse(ids) -> List[int]:

@@ -1,14 +1,16 @@
-"""Host-side batching of handwriting lines, numpy only.
+"""Host-side datasets and batching, numpy only.
 
-Counterpart of the batching half of
-``handwriting_line_generation_tpu/data/datasets.py``: line records, the
-width- and label-bucketed batch assembly (pad value -1 = paper), the flat
-and author-grouped batchers, the side caches of precomputed alignments and
-style banks, the epoch-cycling iterator, a background prefetcher, and the
-foreground mask — Otsu's threshold and a 9x9 elliptic dilation, bit-equal to
-OpenCV's, without OpenCV.  The record sources (IAM, RIMES, the synthetic
-renderer) and ``make_batcher`` are not ported yet (ROADMAP.md); callers
-build :class:`LineRecord` lists themselves.
+Counterpart of ``handwriting_line_generation_tpu/data/datasets.py``: the
+record sources (IAM lines and words, RIMES lines, the synthetic renderer),
+their page decode (:func:`~..utils.png.read_png_gray`, an LRU of decoded
+pages) and height resize (:func:`.imageops.resize_cubic_u8`), the width-
+and label-bucketed batch assembly (pad value -1 = paper), the flat and
+author-grouped batchers, the side caches of precomputed alignments and
+style banks, :func:`make_batcher`, the epoch-cycling iterator, a background
+prefetcher, and the foreground mask — Otsu's threshold and a 9x9 elliptic
+dilation, bit-equal to OpenCV's, without OpenCV.  The JAX package's
+multi-host branch of ``make_batcher`` (per-process record shards) is not
+here: the port trains in one process.
 
 Batch contract (batch-major):
   image          [B, H, Wb, 1] float32
@@ -22,18 +24,34 @@ Batch contract (batch-major):
 from __future__ import annotations
 
 import dataclasses
+import functools
 import glob
 import itertools
+import json
+import os
 import queue
 import threading
 import warnings
 from collections import defaultdict
-from typing import Callable, Dict, Iterator, List, Sequence
+from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
 from handwriting_line_generation_tpu_torch.charset import Charset
+from handwriting_line_generation_tpu_torch.charset import \
+    get_charset as _charset_named
 from handwriting_line_generation_tpu_torch.config import DataConfig
+from handwriting_line_generation_tpu_torch.data.iam import (
+    parse_form_words, parse_form_xml,
+)
+from handwriting_line_generation_tpu_torch.data.imageops import \
+    resize_cubic_u8
+from handwriting_line_generation_tpu_torch.data.rimes import \
+    parse_rimes_lines_xml
+from handwriting_line_generation_tpu_torch.data.synthetic import (
+    SyntheticCorpus, normalize_image,
+)
+from handwriting_line_generation_tpu_torch.utils.png import read_png_gray
 
 PAD_VALUE = -1.0
 
@@ -44,6 +62,40 @@ class LineRecord:
     gt: str
     load: Callable[[], np.ndarray]        # -> normalized [H, W] float32
     rid: str = ""                         # stable record id (side caches)
+
+
+@functools.lru_cache(maxsize=48)
+def _imread_gray(img_path: str) -> np.ndarray:
+    """A decoded page, read-only, from an LRU of 48: every IAM form page
+    holds ~9 line records, each of which would decode it again."""
+    if not os.path.exists(img_path):
+        raise FileNotFoundError(img_path)
+    img = read_png_gray(img_path)
+    img.setflags(write=False)
+    return img
+
+
+def load_crop_resize(img_path: str, bounds, img_height: int,
+                     max_width: int) -> np.ndarray:
+    """Page decode + line crop + cubic resize to ``img_height`` (width
+    capped at ``max_width``; a line the cap leaves short is padded with
+    paper, centred), normalized ``1 - px/128``."""
+    img = _imread_gray(img_path)
+    y0, y1, x0, x1 = bounds
+    y0, x0 = max(0, y0), max(0, x0)
+    img = img[y0:y1, x0:x1]
+    if img.shape[0] != img_height:
+        pct = img_height / img.shape[0]
+        if img.shape[1] * pct > max_width:
+            pct = max_width / img.shape[1]
+        img = resize_cubic_u8(img, pct)
+        if img.shape[0] < img_height:
+            d = img_height - img.shape[0]
+            img = np.pad(img, ((d // 2, d - d // 2), (0, 0)),
+                         constant_values=255)
+    elif img.shape[1] > max_width:
+        img = resize_cubic_u8(img, max_width / img.shape[1])
+    return normalize_image(img)
 
 
 # ---------------------------------------------------------------------------
@@ -115,6 +167,74 @@ def fg_mask_of(img_norm: np.ndarray) -> np.ndarray:
     u8 = np.clip((1.0 - img_norm) * 128.0, 0, 255).astype(np.uint8)
     ink = np.where(u8 > _otsu_threshold(u8), 0, 255).astype(np.uint8)
     return (_dilate(ink, ELLIPSE_9) / 255.0).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Corpora
+# ---------------------------------------------------------------------------
+
+
+def iam_records(data_dir: str, split: str, img_height: int,
+                max_width: int, sets_path: Optional[str] = None,
+                words: bool = False) -> List[LineRecord]:
+    """IAM line (or word) records of a split: the form names from a
+    ``sets.json`` (``{split: [form names]}``) beside the data or given,
+    each form's ``xmls/<name>.xml`` and ``forms/<name>.png``."""
+    sets_path = sets_path or os.path.join(data_dir, "sets.json")
+    with open(sets_path) as f:
+        names = json.load(f)[split]
+    parse = parse_form_words if words else parse_form_xml
+    records: List[LineRecord] = []
+    for name in names:
+        lines, writer = parse(os.path.join(data_dir, "xmls", name + ".xml"))
+        img_path = os.path.join(data_dir, "forms", name + ".png")
+        for j, line in enumerate(lines):
+            records.append(LineRecord(
+                author=writer, gt=line.text,
+                load=(lambda p=img_path, b=line.bounds:
+                      load_crop_resize(p, b, img_height, max_width)),
+                rid=f"{name}-{j}"))
+    return records
+
+
+def rimes_records(data_dir: str, split: str, img_height: int,
+                  max_width: int) -> List[LineRecord]:
+    """RIMES line records; the "authors" are pages."""
+    xml_name = ("lines_training_2011.xml" if split == "train"
+                else "lines_eval_2011_annotated.xml")
+    pages = parse_rimes_lines_xml(os.path.join(data_dir, xml_name))
+    records: List[LineRecord] = []
+    for image, lines in pages.items():
+        img_path = os.path.join(data_dir, "images_gray", image)
+        for j, line in enumerate(lines):
+            records.append(LineRecord(
+                author=image, gt=line.text,
+                load=(lambda p=img_path, b=line.bounds:
+                      load_crop_resize(p, b, img_height, max_width)),
+                rid=f"{image}-{j}"))
+    return records
+
+
+def synthetic_records(split: str, img_height: int, charset: Charset,
+                      n_authors: int = 8, lines_per_author: int = 24,
+                      version: int = 2, **kw) -> List[LineRecord]:
+    """Records of the seeded synthetic corpus of a split (seed 0 train, 1
+    valid, 2 test).  From version 3 the held-out splits draw disjoint
+    author ids (offsets 100000, 200000), so validation measures unseen
+    writer styles.  A line is rendered (and memoized) when first loaded."""
+    seed = {"train": 0, "valid": 1, "test": 2}.get(split, 3)
+    offset = 0
+    if version >= 3:
+        offset = {"train": 0, "valid": 100_000, "test": 200_000}.get(
+            split, 300_000)
+    corpus = SyntheticCorpus(n_authors, lines_per_author, charset,
+                             img_height, seed=seed, version=version,
+                             author_offset=offset, **kw)
+    return [LineRecord(author=f"synth{corpus.records[i][0]:05d}",
+                       gt=corpus.records[i][1],
+                       load=(lambda c=corpus, j=i: c.get(j)[0]),
+                       rid=f"syn-{split}-{i}")
+            for i in range(len(corpus))]
 
 
 # ---------------------------------------------------------------------------
@@ -312,12 +432,54 @@ class AuthorBatcher:
 
 
 def forever(batcher, seed: int = 0, shuffle: bool = True) -> Iterator[Dict]:
-    """Infinite epoch-cycling iterator (the trainers are iteration-based)."""
+    """Infinite epoch-cycling iterator (the trainers are iteration-based);
+    epoch ``e`` shuffles with ``default_rng(seed + e)``.  An epoch that
+    yields no batch (fewer records or groups than one batch) raises
+    ``ValueError`` instead of cycling for ever."""
     epoch = 0
     while True:
         rng = np.random.default_rng(seed + epoch)
-        yield from batcher.batches(rng, shuffle)
+        n = 0
+        for batch in batcher.batches(rng, shuffle):
+            n += 1
+            yield batch
+        if n == 0:
+            raise ValueError(f"an epoch of {type(batcher).__name__} holds "
+                             f"no batch of {batcher.batch_size}")
         epoch += 1
+
+
+def get_charset(cfg: DataConfig) -> Charset:
+    """The charset a data config names (``iam``, ``rimes`` or a JSON)."""
+    return _charset_named(cfg.charset)
+
+
+def make_batcher(cfg: DataConfig, split: str):
+    """The batcher of ``cfg.dataset`` over ``split``: a
+    :class:`LineBatcher` for ``iam_lines``/``iam_words``, else an
+    :class:`AuthorBatcher` (fg masks as ``cfg.fg_masks`` says; RIMES pages
+    paired every way when ``a_batch_size`` is 2)."""
+    charset = get_charset(cfg)
+    if cfg.dataset == "synthetic":
+        records = synthetic_records(split, cfg.img_height, charset,
+                                    n_authors=cfg.synthetic_authors,
+                                    lines_per_author=cfg.synthetic_lines,
+                                    version=cfg.synthetic_version)
+    elif cfg.dataset in ("iam_author", "iam_lines", "iam_words"):
+        records = iam_records(cfg.data_dir, split, cfg.img_height,
+                              cfg.max_width,
+                              words=cfg.dataset == "iam_words")
+    elif cfg.dataset == "rimes_author":
+        records = rimes_records(cfg.data_dir, split, cfg.img_height,
+                                cfg.max_width)
+    else:
+        raise ValueError(f"unknown dataset {cfg.dataset!r}")
+    if cfg.dataset in ("iam_lines", "iam_words"):
+        return LineBatcher(records, charset, cfg.batch_size, cfg,
+                           with_fg=False)
+    return AuthorBatcher(records, charset, cfg.batch_size, cfg.a_batch_size,
+                         cfg, with_fg=cfg.fg_masks,
+                         pair_combinations=cfg.dataset == "rimes_author")
 
 
 _END = object()
@@ -327,23 +489,41 @@ class Prefetcher:
     """Keeps up to ``depth`` items of ``iterator`` assembled ahead on one
     daemon thread, so host-side batch assembly overlaps device work.  An
     exception in the iterator is raised in the consumer; the end of a
-    finite iterator ends this one."""
+    finite iterator ends this one.  :meth:`close` stops the thread."""
 
     def __init__(self, iterator: Iterator[Dict], depth: int = 4):
         self._q: "queue.Queue" = queue.Queue(maxsize=depth)
         self._err = None
+        self._stop = threading.Event()
+
+        def put(item) -> bool:
+            while not self._stop.is_set():
+                try:
+                    self._q.put(item, timeout=0.05)
+                    return True
+                except queue.Full:
+                    pass
+            return False
 
         def worker():
             try:
                 for item in iterator:
-                    self._q.put(item)
+                    if not put(item):
+                        return
             except Exception as e:            # surfaced in the consumer
                 self._err = e
-            finally:
-                self._q.put(_END)
+            put(_END)
 
         self._thread = threading.Thread(target=worker, daemon=True)
         self._thread.start()
+
+    def close(self) -> None:
+        """Stop the thread (once the item it is assembling is done) and wait
+        for it; the iterator then ends."""
+        self._stop.set()
+        self._thread.join()
+        self._q = queue.Queue()
+        self._q.put(_END)
 
     def __iter__(self):
         return self

@@ -11,9 +11,10 @@ or normalized float, ``label`` ``[B, L]``, ``label_lengths`` ``[B]``,
 each step; this one draws its augmentation from one device
 ``torch.Generator`` seeded in :meth:`HWRTrainer.init_state`.
 :meth:`HWRTrainer.train` runs the loop of ``training/loop.py``: in-loop
-validation, checkpoints, resume and SIGINT.  The data pipeline
-(``make_batcher``, prefetching) and multi-process training are not ported
-yet.
+validation, checkpoints, resume and SIGINT.  The training CLI
+(``handwriting_line_generation_tpu_torch.train``) feeds it
+``make_batcher``'s batches through a ``Prefetcher``; multi-process
+training is not ported yet.
 """
 
 from __future__ import annotations

@@ -196,20 +196,21 @@ def test_entry_points_need_cuda_or_explicit_cpu():
         bench.build(2)
 
 
-# modules of the recognition, style and autoencoder slices that the walk
-# below must reach
+# modules of the recognition, style, autoencoder and record-source slices
+# that the walk below must reach
 HWR_MODULES = ("ops.ctc", "ops.augment", "models.hwr", "training.hwr_trainer",
                "training.train_state", "utils.error_rates",
                "utils._editdistance", "utils.train_log", "ops.align",
                "models.char_style", "models.layers", "inference.styles",
                "data.datasets", "trace_style", "models.autoencoder",
                "training.auto_trainer", "training.loop", "utils.checkpoint",
-               "trace_auto")
+               "trace_auto", "data.imageops", "data.synthetic", "data.iam",
+               "data.rimes", "utils.png", "train")
 
 
 def test_port_imports_no_jax():
     """Importing every module of the port, its bench and chip_smoke.py
-    leaves jax, flax, cv2 and the JAX package out of sys.modules."""
+    leaves jax, flax, cv2, PIL and the JAX package out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         f"import {PKG} as pkg\n"
@@ -219,7 +220,7 @@ def test_port_imports_no_jax():
         f"missing = [m for m in {HWR_MODULES!r}\n"
         f"           if '{PKG}.' + m not in sys.modules]\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'jaxlib', 'flax', 'cv2',\n"
+        "       ('jax', 'jaxlib', 'flax', 'cv2', 'PIL',\n"
         "        'handwriting_line_generation_tpu')]\n"
         "print(bad, missing)\n"
         "sys.exit(1 if bad or missing else 0)\n")
@@ -236,6 +237,6 @@ def test_port_sources_name_no_jax():
             words = line.replace(",", " ").split()
             if words[:1] in (["import"], ["from"]):
                 mod = words[1].split(".")[0]
-                assert mod not in ("jax", "jaxlib", "flax", "cv2",
+                assert mod not in ("jax", "jaxlib", "flax", "cv2", "PIL",
                                    "handwriting_line_generation_tpu"), \
                     f"{path}: {line}"
