@@ -119,9 +119,31 @@ Phases, in order; any failure exits non-zero:
     loop's idle share as above); every stage's CTC launches counted
     exactly, and the kernel against its plain version and timed at each
     stage's shape;
-15. summary — one JSON line of kernels (the CTC kernel once for each
-    path that runs it, with that path's launches and main-bucket times;
-    the CLI's stages at their own shapes), then the device line last.
+15. inference from a checkpoint — the port's CLIs on phase 14's
+    ``iam_gan_paper`` run over the mini-IAM fixture with
+    ``model.generator.fused_epilogue=true``: ``get_styles`` (train and
+    valid banks, a row per author group, finite, the card's styles against
+    the CPU's within 1e-3 of the largest, no epilogue launch), ``generate``
+    in all eight modes (``from-to`` on two fixture crops written as PNGs;
+    every PNG read back equal to ``to_uint8`` of the session's images),
+    ``evaluate`` with every ``--save-*`` channel for each checkpoint the
+    run wrote (and through the plain epilogue path: CER/WER equal,
+    ``autoLoss`` within 1e-3, recon PNGs within 1e-3 mean abs), ``evaluate
+    --quality`` through the kernel and the plain path (every metric
+    finite, ``realism_gap = gen_CER - real_CER``), ``eval_writer_id`` and
+    ``play_styles``, each call's epilogue launches 9 a generator forward;
+    the kernel against its plain version at the evaluation path's shapes
+    (T = 112, 240, 256; B = 2, 30, 32; f32, TF32 off) with its times; then
+    on the paper model at full width (f32, seeded weights and conv biases)
+    over 8 batches of 32 u8 glyph lines of 64 x 1024: evaluated lines/s
+    with no channel and with every channel, kernel against plain, TF32 off
+    and on; ``QualityEvaluator.run``'s stage seconds (256 texts); and
+    generated lines/s through the ``generate`` CLI's render mode against
+    ``GenerationSession`` alone;
+16. summary — one JSON line of kernels (the epilogue at generation and on
+    the evaluation path; the CTC kernel once for each path that runs it,
+    with that path's launches and main-bucket times; the CLI's stages at
+    their own shapes), then the device line last.
 
 Imports nothing of JAX.  Exits non-zero without a CUDA device.
 """
@@ -1592,6 +1614,477 @@ def cli_phase(torch, tt, F, ctc, card, root):
 
 
 
+# phase 15: inference from a checkpoint.  The CLI chain runs on phase 14's
+# iam_gan_paper run directory over the mini-IAM fixture, the epilogue
+# kernel switched on (trained configs leave it off)
+INFER_OVERRIDES = [f"data.data_dir={CLI_FIXTURE}", "data.text_data=",
+                   "model.generator.fused_epilogue=true"]
+INFER_COUNT = 4                    # images of each generate mode
+INFER_STRETCH = 5                  # stretch_sweep's factors: 5 forwards
+INFER_CKPTS = ("checkpoint-latest", "model_best", "checkpoint-latest-swa")
+EVAL_FLAGS = ("--save-images", "--save-styles", "--save-spaced",
+              "--save-preds", "--save-nns", "--save-gen")
+EVAL_CHANNELS = dict(save_images=True, save_styles=True, save_spaced=True,
+                     save_preds=True, save_nns=True, save_gen=True)
+# the same run through the kernel and the plain epilogue path, f32 TF32
+# off: the reconstruction loss, and the recon PNGs' mean abs over 255
+AUTO_LOSS_ATOL = 1e-3
+RECON_MEAN_ABS_BOUND = 1e-3
+QUALITY_KEYS = ("gen_CER", "gen_WER", "writer_id_top1", "style_intra_mean",
+                "style_inter_mean", "fid_hwr", "real_CER", "real_WER",
+                "realism_gap", "gen_CER_degraded", "realism_gap_degraded")
+# the generator's T on the evaluation path: Evaluator's generate at W/4 of
+# the fixture's 448-px lines and of 1024-px lines, the quality harness's
+# ceil(6 L / 8) * 8 at L = 40; at B = 2, a padded chunk's 30 real rows, 32
+EVAL_T = (112, 240, 256)
+EVAL_B = (2, 30, 32)
+EVAL_BATCHES, EVAL_B_MAIN = 8, 32  # the timed split: 8 batches of 32 lines
+EVAL_ROUNDS = 2                    # alternated rounds of the timed arms
+EVAL_TEXTS, EVAL_TEXT_LEN = 256, 40
+GEN_CLI_LINES = 256
+
+
+class _Fixed:
+    """Batches assembled once, handed out again on every sweep."""
+
+    def __init__(self, items):
+        self.items = items
+
+    def batches(self, rng, shuffle=True):
+        return iter(self.items)
+
+    def __len__(self):
+        return len(self.items)
+
+
+def _cli_call(torch, ge, cli, argv):
+    """``cli.main(argv)`` with its stdout captured; returns (stdout,
+    epilogue launches, seconds)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    ge.block_epilogue.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"{cli.__name__} {argv} exited {rc}")
+    return buf.getvalue(), ge.block_epilogue.launches, secs
+
+
+def _json_of(text):
+    return json.loads(text[text.index("{"):])
+
+
+def _all_finite(metrics, keys, what):
+    bad = [k for k in keys if k not in metrics
+           or not math.isfinite(metrics[k])]
+    if bad:
+        raise AssertionError(f"{what}: missing or not finite: {bad}")
+
+
+def _groups(batcher):
+    """Author groups of an unshuffled sweep (a style-bank row each)."""
+    import numpy as np
+    return sum(len(b["gt"]) // b.get("a_batch_size", 1)
+               for b in batcher.batches(np.random.default_rng(0),
+                                        shuffle=False))
+
+
+def infer_chain(torch, np, ge, run_dir, config, overrides, work):
+    """Phase 15's CLI chain: ``get_styles`` -> ``generate`` (every mode)
+    -> ``evaluate`` (each checkpoint layout the run wrote, every channel,
+    the kernel against the plain path, ``--quality``) ->
+    ``eval_writer_id`` / ``play_styles``, each call's epilogue launches
+    held to 9 a generator forward.  Returns the chain's launches."""
+    from handwriting_line_generation_tpu_torch import (
+        eval_writer_id, evaluate, generate, get_styles, play_styles,
+    )
+    from handwriting_line_generation_tpu_torch.data import datasets as D
+    from handwriting_line_generation_tpu_torch.inference.generate import (
+        GenerationSession, to_uint8,
+    )
+    from handwriting_line_generation_tpu_torch.inference.load import \
+        load_model
+    from handwriting_line_generation_tpu_torch.inference.styles import (
+        StyleExtractor, load_styles,
+    )
+    from handwriting_line_generation_tpu_torch.ops.augment import \
+        quantize_image_u8
+    from handwriting_line_generation_tpu_torch.utils.checkpoint import (
+        checkpoint_exists, load_meta,
+    )
+    from handwriting_line_generation_tpu_torch.utils.png import (
+        read_png_gray, write_png_gray,
+    )
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    run_dir, work = pathlib.Path(run_dir), pathlib.Path(work)
+    cfg = _config(config, overrides)
+    base = ["-c", str(REPO / "configs" / config), "-k", str(run_dir),
+            "--device", DEVICE]
+    total = 0
+
+    # get_styles: the bank of train and valid, no generator forward
+    out, n, secs = _cli_call(torch, ge, get_styles,
+                             base + _pairs(overrides) + ["-o", str(work)])
+    step = load_meta(str(run_dir), "checkpoint-latest")["iteration"]
+    banks = {}
+    for split in ("train", "valid"):
+        banks[split] = load_styles(str(work / f"{split}_styles_{step}.npz"))
+        s = banks[split]["styles"]
+        want = _groups(D.make_batcher(cfg.data, split))
+        if s.shape != (want, cfg.model.style.style_dim) \
+                or not np.isfinite(s).all():
+            raise AssertionError(f"get_styles {split}: styles {s.shape}, "
+                                 f"{want} groups due, or not finite")
+    cpu_model, _ = load_model(cfg, str(run_dir), device="cpu")
+    cpu = StyleExtractor(cpu_model, device="cpu").extract_dataset(
+        D.make_batcher(cfg.data, "train"))["styles"]
+    del cpu_model
+    rel = float(np.abs(banks["train"]["styles"] - cpu).max()
+                / np.abs(cpu).max())
+    print(f"get_styles: {secs:.2f} s, train {banks['train']['styles'].shape}"
+          f" valid {banks['valid']['styles'].shape} rows, epilogue launches "
+          f"{n}; card vs CPU, TF32 off: max abs diff / max |style| "
+          f"{rel:.3e} (bound {STYLE_CPU_RTOL})", flush=True)
+    if n != 0 or not rel <= STYLE_CPU_RTOL:
+        raise AssertionError("get_styles: epilogue launches, or styles off "
+                             "the CPU's")
+    bank_path = str(work / f"train_styles_{step}.npz")
+
+    # generate: every mode; each PNG read back equal to the session's image
+    pngs = []
+    for i, rec in enumerate(D.iam_records(str(CLI_FIXTURE), "valid", 64,
+                                          1300)[:2]):
+        pngs.append(str(work / f"crop{i}.png"))
+        write_png_gray(pngs[-1], quantize_image_u8(rec.load()))
+    model, _ = load_model(cfg, str(run_dir), device=DEVICE)
+    session = GenerationSession(model, D.get_charset(cfg.data),
+                                device=DEVICE)
+    render_mode = generate.render_mode
+    gen_ov = [a for ov in overrides for a in ("--override", ov)]
+    for mode in generate.MODES:
+        argv = base + gen_ov + ["-m", mode, "-n", str(INFER_COUNT), "-o",
+                                str(work / "gen")]
+        if mode == "from-to":
+            argv += ["--from-image", pngs[0], "--to-image", pngs[1]]
+        elif mode != "vae":
+            argv += ["-s", bank_path]
+        seen = []
+
+        def kept(*a, **k):
+            seen.append(render_mode(*a, **k))
+            return seen[-1]
+
+        with mock.patch.object(generate, "render_mode", kept):
+            out, n, secs = _cli_call(torch, ge, generate, argv)
+        forwards = INFER_STRETCH if mode == "stretch" else 1
+        want = seen[0]
+        files = sorted((work / "gen").glob(f"{mode}_*.png"))
+        same = len(files) == want.shape[0] and all(
+            np.array_equal(read_png_gray(str(f)), to_uint8(w))
+            for f, w in zip(files, want))
+        # the same images from another load of the checkpoint
+        args = generate.build_parser().parse_args(argv)
+        again = render_mode(args, session, cfg, load_styles(
+            bank_path) if args.styles else None)
+        d = np.abs(to_uint8(again).astype(int) - to_uint8(want)).max()
+        e = np.abs(again - want).max()
+        print(f"generate -m {mode}: {secs:.2f} s, {len(files)} PNGs "
+              f"{tuple(want.shape[1:3])}, read back equal to the session's "
+              f"{same}, epilogue launches {n} (want {9 * forwards}); a "
+              f"second load's render: max abs diff {e:.3e}, {d} grey "
+              f"levels", flush=True)
+        if not same or n != 9 * forwards:
+            raise AssertionError(f"generate -m {mode}")
+        total += n
+    del model, session
+    torch.cuda.empty_cache()
+
+    # evaluate: every channel, each layout the run wrote
+    n_valid = sum(1 for _ in D.make_batcher(cfg.data, "valid").batches(
+        np.random.default_rng(0), shuffle=False))
+    found = [c for c in INFER_CKPTS if checkpoint_exists(str(run_dir), c)]
+    print(f"checkpoints in the run: {found} (of {list(INFER_CKPTS)})",
+          flush=True)
+    metrics = {}
+    for name in found:
+        out, n, secs = _cli_call(torch, ge, evaluate, base + _pairs(
+            overrides) + ["--ckpt-name", name, "-o", str(work / name),
+                          *EVAL_FLAGS])
+        metrics[name] = m = _json_of(out)
+        _all_finite(m, ("CER", "WER", "autoLoss"), f"evaluate {name}")
+        files = {f.name for f in (work / name).iterdir()}
+        missing = {"styles.npz", "spaced.npz", "preds.csv", "nns.csv",
+                   "recon_0_0.png", "gen_0_0.png"} - files
+        print(f"evaluate --ckpt-name {name}: {secs:.2f} s, {m}, "
+              f"{len(files)} files, epilogue launches {n} (want "
+              f"{18 * n_valid}: autoencode and generate a batch)",
+              flush=True)
+        if missing or n != 18 * n_valid:
+            raise AssertionError(f"evaluate {name}: missing {missing} or "
+                                 f"{n} launches")
+        total += n
+    out, n, secs = _cli_call(torch, ge, evaluate, base + _pairs(
+        overrides + ["model.generator.fused_epilogue=false"]) + [
+        "-o", str(work / "plain"), *EVAL_FLAGS])
+    plain, fused = _json_of(out), metrics["checkpoint-latest"]
+    recon = sorted(f.name for f in (work / "plain").glob("recon_*.png"))
+    mad = max(float(np.abs(
+        read_png_gray(str(work / "checkpoint-latest" / f)).astype(float)
+        - read_png_gray(str(work / "plain" / f))).mean()) / 255.0
+              for f in recon)
+    print(f"evaluate, kernel vs plain epilogue: CER {fused['CER']} / "
+          f"{plain['CER']}, WER {fused['WER']} / {plain['WER']}, autoLoss "
+          f"{fused['autoLoss']:.6f} / {plain['autoLoss']:.6f} (atol "
+          f"{AUTO_LOSS_ATOL}); {len(recon)} recon PNGs, largest mean abs "
+          f"diff / 255 {mad:.3e} (bound {RECON_MEAN_ABS_BOUND}); plain "
+          f"launches {n}", flush=True)
+    if (fused["CER"], fused["WER"]) != (plain["CER"], plain["WER"]) \
+            or abs(fused["autoLoss"] - plain["autoLoss"]) > AUTO_LOSS_ATOL \
+            or not mad <= RECON_MEAN_ABS_BOUND or n != 0:
+        raise AssertionError("evaluate through the kernel disagrees with "
+                             "the plain path")
+
+    # evaluate --quality, through the kernel and the plain path
+    n_texts = sum(1 for b in D.make_batcher(cfg.data, "valid").batches(
+        np.random.default_rng(0), shuffle=False) for t in b["gt"]
+        if t != "$UNKOWN$")
+    qual = {}
+    for fused_on in (True, False):
+        ov = overrides + [f"model.generator.fused_epilogue="
+                          f"{str(fused_on).lower()}"]
+        out, n, secs = _cli_call(torch, ge, evaluate, base + _pairs(ov) + [
+            "--quality", "-o", str(work / f"quality_{fused_on}")])
+        qual[fused_on] = m = _json_of(out)
+        _all_finite(m, QUALITY_KEYS, "evaluate --quality")
+        want = 9 * -(-min(n_texts, 256) // 32) if fused_on else 0
+        gap = m["realism_gap"] - (m["gen_CER"] - m["real_CER"])
+        print(f"evaluate --quality (epilogue kernel {fused_on}): {secs:.2f}"
+              f" s, {m}; epilogue launches {n} (want {want})", flush=True)
+        if n != want or abs(gap) > 1e-12:
+            raise AssertionError("evaluate --quality")
+        total += n
+    print(f"gen_CER through the kernel {qual[True]['gen_CER']}, through the "
+          f"plain path {qual[False]['gen_CER']}", flush=True)
+
+    # the bank's statistics
+    for cli in (eval_writer_id, play_styles):
+        out, n, _ = _cli_call(torch, ge, cli, [bank_path, "--device",
+                                               DEVICE])
+        m = _json_of(out)
+        _all_finite(m, [k for k in m if k != "n"], cli.__name__)
+        print(f"{cli.__name__.rsplit('.', 1)[-1]}: {m}", flush=True)
+    print(f"inference chain: {total} epilogue launches", flush=True)
+    return total
+
+
+def time_epilogue_forward(torch, ge, tt, b, t, card):
+    """The 9 epilogue calls of one paper-width float32 forward at (B, T)
+    with a conv bias: each kernel call against its plain version, then the
+    kernel's, the plain version's and the bound's ms summed over the 9.
+    Returns (kernel ms, plain ms, bound ms, bound_by, max abs err)."""
+    k_ms = p_ms = b_ms = err = 0.0
+    bound_by = "bytes"
+    for blk, c, h, w, blur in epilogue_calls(t=t):
+        args, bias = epilogue_inputs(torch, b, c, h, w, torch.float32,
+                                     seed=blk + t)
+        err = max(err, check_epilogue(torch, ge, args, blur, "float32",
+                                      f"evaluation block {blk} B={b} C={c} "
+                                      f"H={h} W={w}", bias=bias))
+        k_ms += tt.event_ms(lambda: ge.block_epilogue(
+            *args, apply_blur=blur, bias=bias), iters=20)
+        p_ms += tt.event_ms(lambda: ge.block_epilogue_reference(
+            *args, apply_blur=blur, bias=bias), iters=3, warmup=1)
+        n = b * h * w
+        t_bytes = (2 * n * c + n + 2 * c + 2 * b * c) * 4 \
+            / HBM_BYTES_PER_S * 1e3
+        t_ops = n * c * OPS_PER_ELEM[blur] / F32_OPS_PER_S * 1e3
+        if t_ops > t_bytes:
+            bound_by = "operations"
+        b_ms += max(t_bytes, t_ops)
+        del args
+    print(f"gen_epilogue evaluation per forward (9 calls, B={b} T={t} "
+          f"float32): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({bound_by}) {card}", flush=True)
+    return k_ms, p_ms, b_ms, bound_by, err
+
+
+def _eval_batches(np, tt):
+    """``EVAL_BATCHES`` batch dicts of ``EVAL_B_MAIN`` seeded u8 glyph
+    lines of 64 x 1024 (``trace_train.batch``), dequantized on the host,
+    as 16 author pairs shared by every batch."""
+    from handwriting_line_generation_tpu_torch.charset import IAM_CHARSET
+    from handwriting_line_generation_tpu_torch.ops.augment import \
+        dequantize_image
+    out = []
+    for i in range(EVAL_BATCHES):
+        image, label, lens, width = tt.batch(seed=100 + i, device="cpu",
+                                             n=EVAL_B_MAIN)
+        lab, n = label.numpy(), lens.numpy()
+        out.append(dict(
+            image=dequantize_image(image, width).numpy(), label=lab,
+            label_lengths=n, width=width.numpy(), a_batch_size=2,
+            gt=[IAM_CHARSET.decode(lab[b, :n[b]]) for b in range(len(n))],
+            author=[f"a{b // 2:02d}" for b in range(len(n))],
+            rid=[f"b{i}-{b}" for b in range(len(n))]))
+    return out
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def infer_rates(torch, np, ge, tt, ts, card):
+    """Phase 15's numbers on the paper model at full width (f32, seeded
+    weights and conv biases): evaluated lines/s with no channel and with
+    every channel, through the kernel and the plain epilogue path, TF32
+    off and on, in alternated rounds; ``QualityEvaluator.run``'s stages;
+    generated lines/s through the ``generate`` CLI's render mode against
+    ``GenerationSession`` alone."""
+    from handwriting_line_generation_tpu_torch import generate
+    from handwriting_line_generation_tpu_torch.charset import IAM_CHARSET
+    from handwriting_line_generation_tpu_torch.data.text_data import \
+        TextSampler
+    from handwriting_line_generation_tpu_torch.inference.eval import \
+        Evaluator
+    from handwriting_line_generation_tpu_torch.inference.generate import (
+        GenerationSession, to_uint8,
+    )
+    from handwriting_line_generation_tpu_torch.inference.quality import \
+        QualityEvaluator
+    from handwriting_line_generation_tpu_torch.inference.styles import (
+        StyleExtractor, save_styles,
+    )
+    from handwriting_line_generation_tpu_torch.utils.checkpoint import \
+        save_checkpoint
+    from handwriting_line_generation_tpu_torch.utils.png import \
+        write_png_gray
+    model = ts.paper_model(DEVICE)
+    split = _Fixed(_eval_batches(np, tt))
+    lines = EVAL_BATCHES * EVAL_B_MAIN
+    ev = Evaluator(model, IAM_CHARSET, device=DEVICE)
+    work = tempfile.TemporaryDirectory()
+    gen = model.generator
+
+    def arm(fused, channels):
+        gen.fused_epilogue = fused
+        kw = EVAL_CHANNELS if channels else {}
+        return _timed(torch, lambda: ev.run(split, out_dir=work.name, **kw))
+
+    arms = [(f, c) for c in (False, True) for f in (True, False)]
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        for a in arms:                                   # warm-up
+            arm(*a)
+        secs = {a: [] for a in arms}
+        metrics = {}
+        for r in range(EVAL_ROUNDS):
+            for a in (arms if r % 2 == 0 else arms[::-1]):
+                s, metrics[a] = arm(*a)
+                secs[a].append(s)
+        for c in (False, True):
+            rates = {f: [lines / s for s in secs[(f, c)]] for f in (True,
+                                                                    False)}
+            print(f"Evaluator.run, {lines} lines (B={EVAL_B_MAIN}, 64x"
+                  f"{tt.W}, f32, TF32 {'on' if tf32 else 'off'}), "
+                  f"{'every channel' if c else 'no channel'}: evaluated "
+                  f"lines/s through the kernel "
+                  + ", ".join(f"{v:.1f}" for v in rates[True])
+                  + " (median "
+                  f"{statistics.median(rates[True]):.1f}), plain epilogue "
+                  + ", ".join(f"{v:.1f}" for v in rates[False])
+                  + f" (median {statistics.median(rates[False]):.1f}) "
+                  f"{card}", flush=True)
+        k, p = metrics[(True, False)], metrics[(False, False)]
+        print(f"  metrics kernel {k}, plain {p}", flush=True)
+        if k["CER"] != p["CER"] or not abs(k["autoLoss"] - p["autoLoss"]) \
+                <= AUTO_LOSS_ATOL:
+            raise AssertionError("Evaluator through the kernel disagrees "
+                                 "with the plain path")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen.fused_epilogue = True
+
+    # the quality harness over the same split, 256 texts of up to 40
+    texts = TextSampler(IAM_CHARSET, EVAL_TEXTS, max_len=EVAL_TEXT_LEN,
+                        seed=0).get_batch()["gt"]
+    qe = QualityEvaluator(model, IAM_CHARSET, device=DEVICE)
+    for rep in range(2):                    # the first warms up
+        wall, q = _timed(torch, lambda: qe.run(split, texts, gen_batch=32))
+    _all_finite(q, QUALITY_KEYS, "QualityEvaluator.run")
+    st = qe.stage_seconds
+    print(f"QualityEvaluator.run: {lines} real lines, {len(texts)} texts "
+          f"(longest {max(map(len, texts))}) at gen_batch 32, f32, TF32 off:"
+          f" {wall:.3f} s; style sweep {st['style_sweep']:.3f} s, gen + "
+          f"readback {st['gen_readback']:.3f} s, degraded readback (host) "
+          f"{st['degrade']:.3f} s, FID (host, D=512) {st['fid']:.3f} s; "
+          f"{q} {card}", flush=True)
+
+    # the generate CLI's render mode against the session alone
+    ckpt = pathlib.Path(work.name, "ckpt")
+    save_checkpoint(str(ckpt), "checkpoint-latest",
+                    {"model": model.state_dict(), "step": 0})
+    bank = StyleExtractor(model, device=DEVICE).extract_dataset(split)
+    bank_path = str(ckpt / "bank.npz")
+    save_styles(bank_path, bank)
+    argv = ["-c", str(ts.CONFIG), "-k", str(ckpt), "-s", bank_path, "-m",
+            "render", "-n", str(GEN_CLI_LINES), "-o", str(ckpt / "out"),
+            "--device", DEVICE, "--override",
+            "model.generator.fused_epilogue=true", "--override",
+            "model.compute_dtype=float32"]
+    cli_secs = [_cli_call(torch, ge, generate, argv)[2] for _ in range(3)]
+    session = GenerationSession(model, IAM_CHARSET, device=DEVICE)
+    texts = [generate.build_parser().parse_args(argv).text] * GEN_CLI_LINES
+    alone = [_timed(torch, lambda: session.random_interpolated(
+        texts, bank["styles"], seed=0)) for _ in range(4)][1:]
+    imgs = alone[-1][1]
+    t0 = time.perf_counter()
+    for i in range(imgs.shape[0]):
+        write_png_gray(str(ckpt / "w.png"), to_uint8(imgs[i]))
+    png_secs = time.perf_counter() - t0
+    print(f"generate -m render, {GEN_CLI_LINES} lines of "
+          f"{tuple(imgs.shape[1:3])} (f32, TF32 off): the CLI "
+          + ", ".join(f"{GEN_CLI_LINES / s:.1f}" for s in cli_secs[1:])
+          + " generated lines/s (first call "
+          f"{GEN_CLI_LINES / cli_secs[0]:.1f}); GenerationSession alone "
+          + ", ".join(f"{GEN_CLI_LINES / s:.1f}" for s, _ in alone)
+          + f"; the PNG writes alone {png_secs:.3f} s {card}", flush=True)
+    work.cleanup()
+    del model, ev, qe, session
+    torch.cuda.empty_cache()
+
+
+def infer_phase(torch, np, ge, tt, ts, card, root):
+    """Phase 15.  Returns the kernels-line fields of the evaluation path's
+    epilogue entry."""
+    with tempfile.TemporaryDirectory() as work:
+        launches = infer_chain(torch, np, ge,
+                               pathlib.Path(root) / "iam_gan_paper",
+                               "iam_gan_paper.json", INFER_OVERRIDES, work)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    err, times = 0.0, {}
+    for t in EVAL_T:
+        for b in EVAL_B:
+            k_ms, p_ms, b_ms, by, e = time_epilogue_forward(
+                torch, ge, tt, b, t, card)
+            err = max(err, e)
+            times[(b, t)] = (k_ms, p_ms, b_ms, by)
+    infer_rates(torch, np, ge, tt, ts, card)
+    k_ms, p_ms, b_ms, by = times[(EVAL_B_MAIN, EVAL_T[-1])]
+    return dict(launches=launches, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                bound_ms=b_ms, bound_by=by)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1812,9 +2305,15 @@ def main():
     # fixture and the synthetic corpus, each stage through the CTC kernel
     cli_rows = cli_phase(torch, tt, F, ctc, card,
                          pathlib.Path(ckpts.name, "cli"))
+
+    # 15. inference from a checkpoint: the port's get_styles, generate and
+    # evaluate CLIs on phase 14's GAN run through the epilogue kernel, the
+    # kernel at the evaluation path's shapes, and the evaluation rates
+    infer = infer_phase(torch, np, ge, tt, ts, card,
+                        pathlib.Path(ckpts.name, "cli"))
     ckpts.cleanup()
 
-    # 15. summary
+    # 16. summary
     print(smi)
     # the CTC kernel once per path that runs it: each entry's launches come
     # from that path's run, its times from that path's main bucket
@@ -1833,7 +2332,12 @@ def main():
         "replaces": "handwriting_line_generation_tpu/ops/gen_epilogue.py:39",
         "launches": launches, "max_abs_err": max_err, "ms": k_ms,
         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": bound_by,
-        "library_ms": None}] + [{
+        "library_ms": None}, {
+        "name": f"gen_epilogue (evaluation, B={EVAL_B_MAIN} T={EVAL_T[-1]} "
+                "float32)", "route": "cuda",
+        "source": "handwriting_line_generation_tpu_torch/csrc/gen_epilogue.cu",
+        "replaces": "handwriting_line_generation_tpu/ops/gen_epilogue.py:39",
+        **infer, "library_ms": None}] + [{
         "name": f"ctc ({path}, B={b} T={t} L={lab})", "route": "cuda",
         "source": "handwriting_line_generation_tpu_torch/csrc/ctc.cu",
         "replaces": "handwriting_line_generation_tpu/ops/ctc_pallas.py:60",

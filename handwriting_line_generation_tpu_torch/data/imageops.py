@@ -81,6 +81,23 @@ def resize_cubic_u8(img: np.ndarray, pct: float) -> np.ndarray:
     return np.clip(np.rint(out), 0, 255).astype(np.uint8)
 
 
+def resize_cubic_to_u8(img: np.ndarray, size: Tuple[int, int]
+                       ) -> np.ndarray:
+    """``cv2.resize(img, (w, h), interpolation=INTER_CUBIC)`` of a u8
+    ``[H, W]`` image to ``size = (w, h)``: each axis at OpenCV's own scale
+    ``src / dst``, columns first, in float32, rounded to nearest."""
+    H, W = img.shape
+    dw, dh = size
+    if (dh, dw) == (H, W):
+        return img.copy()
+    yi, wy = _cubic_taps(dh, H, H / dh)
+    xi, wx = _cubic_taps(dw, W, W / dw)
+    src = img.astype(np.float32)
+    rows = sum(src[:, xi[:, k]] * wx[:, k] for k in range(4))   # [H, dw]
+    out = sum(rows[yi[:, k]] * wy[:, k:k + 1] for k in range(4))
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
 def _linear_taps(n_dst: int, n_src: int
                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Left index, right index and float32 weights ``[n_dst, 2]`` of one

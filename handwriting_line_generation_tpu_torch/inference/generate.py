@@ -88,6 +88,13 @@ class GenerationSession:
                seed: int = 0, spaced_len: Optional[int] = None,
                label_len: Optional[int] = None) -> np.ndarray:
         """texts + styles ``[B, D]`` -> images ``[B, 64, 4*T, 1]``."""
+        return self.render_tensor(texts, styles, seed, spaced_len,
+                                  label_len).cpu().numpy()
+
+    def render_tensor(self, texts: Sequence[str], styles: np.ndarray,
+                      seed: int = 0, spaced_len: Optional[int] = None,
+                      label_len: Optional[int] = None) -> torch.Tensor:
+        """:meth:`render`, the images left on the device."""
         label, lens = self.encode_texts(texts, label_len)
         if spaced_len is None:
             # spacer mean init ~2 blanks + ~1 dup per char; 6x headroom,
@@ -97,7 +104,7 @@ class GenerationSession:
                                 device=self.device)
         img, _ = self.forward(label, lens, style, spaced_len=spaced_len,
                               seed=seed)
-        return img.cpu().numpy()
+        return img
 
     # -- modes ---------------------------------------------------------
 

@@ -5,16 +5,15 @@ Counterpart of ``handwriting_line_generation_tpu/inference/styles.py``:
 iterate a batcher, run ``HWWithStyle.extract_style`` per batch of author
 groups, and keep one ``{styles, authors, ids}`` row per group.  Banks are
 ``.npz`` files in the JAX package's layout, so they move between the two
-packages.  Not ported yet (ROADMAP.md): the ``tap`` hook that fuses extra
-device work into the extraction call, and ``umap_embed`` /
-``plot_style_map``.
+packages.  ``umap_embed`` keeps JAX's try-UMAP-else-PCA.  Not ported yet
+(ROADMAP.md): ``plot_style_map`` (matplotlib).
 """
 
 from __future__ import annotations
 
 import os
 from collections import defaultdict
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,11 +29,16 @@ class StyleExtractor:
 
     ``device`` defaults to ``cuda`` and raises without a GPU; pass
     ``device="cpu"`` to run on the CPU.  The model is moved there and put
-    in eval mode."""
+    in eval mode.  ``tap(model, image, frames)``: extra device work run in
+    the same ``inference_mode`` call as each batch's extraction (the
+    quality harness's FID features); its per-batch outputs come back from
+    :meth:`extract_dataset` under ``'tap'``."""
 
-    def __init__(self, model: HWWithStyle, device=None):
+    def __init__(self, model: HWWithStyle, tap: Optional[Callable] = None,
+                 device=None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        self.tap = tap
 
     @torch.inference_mode()
     def extract(self, image: torch.Tensor, frames: torch.Tensor,
@@ -56,11 +60,12 @@ class StyleExtractor:
         ``through_emb``: pass the styles through the generator's style MLP.
         ``on_batch(batch)``: called on every batch consumed.
         ``with_pred``: also return each batch's frame-masked recognizer
-        log-probs under ``'pred'``.  A group's id is its records' ids joined
-        by ";" (so a bank row can be kept from the lines it came from), or
+        log-probs under ``'pred'``.  With a ``tap``, its outputs come under
+        ``'tap'``.  A group's id is its records' ids joined by ";" (so a
+        bank row can be kept from the lines it came from), or
         ``<author>_<batch>_<row>`` when the records have none.  The loop
         only enqueues device work; the host waits once, at the end."""
-        styles, authors, ids, preds = [], [], [], []
+        styles, authors, ids, preds, taps = [], [], [], [], []
         rng = np.random.default_rng(0)
         for i, batch in enumerate(batcher.batches(rng, shuffle=False)):
             if max_batches is not None and i >= max_batches:
@@ -71,7 +76,10 @@ class StyleExtractor:
             image = torch.as_tensor(batch["image"]).to(self.device)
             width = torch.as_tensor(batch["width"]).to(self.device)
             frames = torch.clamp((width + 3) // 4, 1, image.shape[2] // 4)
-            style, pred = self.extract(image, frames, a)
+            with torch.inference_mode():
+                style, pred = self.extract(image, frames, a)
+                if self.tap is not None:
+                    taps.append(self.tap(self.model, image, frames))
             if with_pred:
                 preds.append(pred)
             if through_emb:
@@ -87,6 +95,8 @@ class StyleExtractor:
                     ids.append(f"{batch['author'][j]}_{i}_{j}")
         out = {"styles": torch.cat(styles).float().cpu().numpy(),
                "authors": authors, "ids": ids}
+        if self.tap is not None:
+            out["tap"] = [t.cpu().numpy() for t in taps]
         if with_pred:
             out["pred"] = [p.cpu().numpy() for p in preds]
         return out
@@ -151,3 +161,16 @@ def writer_id_retrieval(data: Dict, metric: str = "l2",
     has_hit = same.any(axis=1)
     out["mean_rank"] = float(np.mean(np.where(has_hit, first_hit, n)))
     return out
+
+
+def umap_embed(data: Dict, n_components: int = 2) -> np.ndarray:
+    """2-D embedding of the styles for plotting: UMAP when the ``umap``
+    package is installed, else PCA by numpy's SVD (float64)."""
+    styles = np.asarray(data["styles"], np.float64)
+    try:
+        import umap                                     # pragma: no cover
+        return umap.UMAP(n_components=n_components).fit_transform(styles)
+    except ImportError:
+        x = styles - styles.mean(0)
+        _, _, vt = np.linalg.svd(x, full_matrices=False)
+        return x @ vt[:n_components].T

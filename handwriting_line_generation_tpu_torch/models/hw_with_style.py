@@ -117,6 +117,7 @@ class HWWithStyle(nn.Module):
                    label_lengths: torch.Tensor, a_batch_size: int = 1,
                    spaced_label: Optional[torch.Tensor] = None,
                    frame_lengths: Optional[torch.Tensor] = None,
+                   pred: Optional[torch.Tensor] = None,
                    noise: Optional[List[torch.Tensor]] = None,
                    generator: Optional[torch.Generator] = None,
                    vae_generator: Optional[torch.Generator] = None,
@@ -126,12 +127,13 @@ class HWWithStyle(nn.Module):
         ``spaced_label`` is given), regenerate.  Returns ``(image [B, 64,
         4T, 1], aux)`` with aux's ``style``, ``pred`` and ``spaced_label``.
 
-        ``noise`` / ``generator``: the generator's noise planes, as in
-        :meth:`generate_spaced`.  A VAE extractor regenerates from ``mu +
-        exp(log_sigma) * eps``, ``eps`` given as ``vae_eps`` or drawn from
-        ``vae_generator``, when either is given, and from ``mu`` otherwise;
-        aux keeps ``(mu, log_sigma)``."""
-        style, pred = self.extract_style(image, a_batch_size,
+        ``pred``: the recognizer's unmasked log-probs of ``image``, when the
+        caller has them (not recomputed).  ``noise`` / ``generator``: the
+        generator's noise planes, as in :meth:`generate_spaced`.  A VAE
+        extractor regenerates from ``mu + exp(log_sigma) * eps``, ``eps``
+        given as ``vae_eps`` or drawn from ``vae_generator``, when either is
+        given, and from ``mu`` otherwise; aux keeps ``(mu, log_sigma)``."""
+        style, pred = self.extract_style(image, a_batch_size, pred=pred,
                                          frame_lengths=frame_lengths)
         if self.cfg.style.vae and (vae_generator is not None
                                    or vae_eps is not None):

@@ -80,19 +80,25 @@ class CNNOnlyHWR(nn.Module):
                                    if self.use_norm)
         self.out = nn.Conv1d(512, num_class, 3)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, return_features: bool = False):
         """``[B, H, W, 1]`` images -> ``[B, T, num_class]`` float32
-        log-probs."""
+        log-probs.  ``return_features``: also the height-collapsed trunk
+        sequence ``[B, T, 512]`` before the dilated stack, in the compute
+        dtype (the quality harness's FID features)."""
         x = _maybe_pad(x, self.pad, self.small)
         feats = self.trunk(x.permute(0, 3, 1, 2))
         seq = feats.float().mean(dim=2).to(self.dtype)        # [B, 512, T]
+        skip = seq
         for i, (layer, dil) in enumerate(zip(self.convs, DILATIONS)):
             seq = conv(seq, layer, self.dtype, padding=dil, dilation=dil)
             if self.use_norm:
                 seq = self.norms[i](seq)
             seq = F.relu(seq)
         logits = conv(seq, self.out, self.dtype, padding=1)
-        return F.log_softmax(logits.float(), dim=1).transpose(1, 2)
+        out = F.log_softmax(logits.float(), dim=1).transpose(1, 2)
+        if return_features:
+            return out, skip.transpose(1, 2)
+        return out
 
 
 def _maybe_pad(x: torch.Tensor, pad: str, small: bool) -> torch.Tensor:

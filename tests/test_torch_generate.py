@@ -196,8 +196,8 @@ def test_entry_points_need_cuda_or_explicit_cpu():
         bench.build(2)
 
 
-# modules of the recognition, style, autoencoder and record-source slices
-# that the walk below must reach
+# modules of the recognition, style, autoencoder, record-source and
+# evaluation slices that the walk below must reach
 HWR_MODULES = ("ops.ctc", "ops.augment", "models.hwr", "training.hwr_trainer",
                "training.train_state", "utils.error_rates",
                "utils._editdistance", "utils.train_log", "ops.align",
@@ -205,12 +205,16 @@ HWR_MODULES = ("ops.ctc", "ops.augment", "models.hwr", "training.hwr_trainer",
                "data.datasets", "trace_style", "models.autoencoder",
                "training.auto_trainer", "training.loop", "utils.checkpoint",
                "trace_auto", "data.imageops", "data.synthetic", "data.iam",
-               "data.rimes", "utils.png", "train")
+               "data.rimes", "utils.png", "train", "inference.eval",
+               "inference.quality", "inference.load", "ops.masks",
+               "analysis.mturk", "get_styles", "generate", "evaluate",
+               "eval_writer_id", "play_styles", "parse_mturk")
 
 
 def test_port_imports_no_jax():
     """Importing every module of the port, its bench and chip_smoke.py
-    leaves jax, flax, cv2, PIL and the JAX package out of sys.modules."""
+    leaves jax, flax, cv2, PIL, matplotlib and the JAX package out of
+    sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         f"import {PKG} as pkg\n"
@@ -220,7 +224,7 @@ def test_port_imports_no_jax():
         f"missing = [m for m in {HWR_MODULES!r}\n"
         f"           if '{PKG}.' + m not in sys.modules]\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'jaxlib', 'flax', 'cv2', 'PIL',\n"
+        "       ('jax', 'jaxlib', 'flax', 'cv2', 'PIL', 'matplotlib',\n"
         "        'handwriting_line_generation_tpu')]\n"
         "print(bad, missing)\n"
         "sys.exit(1 if bad or missing else 0)\n")
