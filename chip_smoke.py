@@ -140,10 +140,33 @@ Phases, in order; any failure exits non-zero:
     and on; ``QualityEvaluator.run``'s stage seconds (256 texts); and
     generated lines/s through the ``generate`` CLI's render mode against
     ``GenerationSession`` alone;
-16. summary — one JSON line of kernels (the epilogue at generation and on
+16. multi-process training on the one card — the train CLI under
+    ``torchrun`` through this script's rank wrapper (``--rank-run``; f32,
+    TF32 off):
+    (a) ``iam_hwr`` for 10 steps (``--profile``) and ``iam_gan_paper`` for
+    14 lessons (on phase 14's checkpoints) on two gloo ranks sharing
+    ``cuda:0``: both ranks log the same losses, rank 0 alone writes the run
+    directory, each rank's CTC launches counted (a step and a local
+    validation batch each; genRecog and reconRecog twice a cycle), the
+    first step's averaged gradients and loss bit-equal on both ranks and
+    within 1e-5 of each tensor's max of one process on the concatenated
+    batch (the parameters at the end within the CPU tests' Adam bound of
+    it, a side check), the two ranks' HWR checkpoint resumed in one
+    process; (b)
+    ``iam_hwr`` for 4 steps as a world of 1 on NCCL and (c) on a 1 x 2
+    ``--fsdp 2`` grid of two gloo ranks (sharded Adam), each writing the
+    plain run's ``checkpoint-latest`` bit for bit (deterministic
+    algorithms); (d) ``graft_entry.dryrun_multichip(2)`` on the card; (e)
+    each rank's profile names ``ctc_kernel``; then the gradient bucket's
+    ``all_reduce`` ms and bytes at the paper GAN's 1, 2 and 3 groups,
+    GAN-trained lines/s on 2 ranks against 1 (the second cycle) and each
+    rank's peak memory (gloo through the host on one card: not a
+    multi-card NCCL figure);
+17. summary — one JSON line of kernels (the epilogue at generation and on
     the evaluation path; the CTC kernel once for each path that runs it,
-    with that path's launches and main-bucket times; the CLI's stages at
-    their own shapes), then the device line last.
+    with that path's launches and main-bucket times; the CLI's stages and
+    the distributed runs' ranks at their own shapes), then the device line
+    last.
 
 Imports nothing of JAX.  Exits non-zero without a CUDA device.
 """
@@ -294,10 +317,11 @@ def count_device_kernels(torch, name, fn):
 
 def ctc_inputs(torch, ctc, B, T, C, L, seed):
     """Log-softmax inputs with about a third of the frames masked to blank
-    (mean over samples), label lengths in [1, L], and three edge cases:
-    sample 0 repeats characters, sample 1 has length 0, sample 2 has more
-    labels than unmasked frames (impossible).  Returns ``(masked log-probs,
-    labels, label_lengths)``; the first requires grad."""
+    (mean over samples), label lengths in [1, L], and three edge cases
+    (those the batch has room for): sample 0 repeats characters, sample 1
+    has length 0, sample 2 has more labels than unmasked frames
+    (impossible).  Returns ``(masked log-probs, labels, label_lengths)``;
+    the first requires grad."""
     g = torch.Generator(DEVICE).manual_seed(seed)
     lp = torch.log_softmax(torch.randn((B, T, C), generator=g,
                                        device=DEVICE), -1)
@@ -309,9 +333,11 @@ def ctc_inputs(torch, ctc, B, T, C, L, seed):
     rep = torch.tensor([3, 3, 3, 7, 7, 1][:L], device=DEVICE)
     labels[0, :len(rep)] = rep
     lens[0] = max(int(lens[0]), len(rep))
-    lens[1] = 0
-    lens[2] = L
-    frames[2] = max(1, min(T, L // 2))
+    if B > 1:
+        lens[1] = 0
+    if B > 2:
+        lens[2] = L
+        frames[2] = max(1, min(T, L // 2))
     labels = torch.where(torch.arange(L, device=DEVICE)[None] < lens[:, None],
                          labels, 0).contiguous()
     x = ctc.mask_frames_to_blank(lp, frames).detach().requires_grad_(True)
@@ -348,14 +374,16 @@ def check_ctc(torch, ctc, T, L, seed, batch=CTC_BATCH):
               ).max().item()
     ok = (torch.allclose(nll_k, nll_p, **CTC_NLL_TOL)
           and torch.allclose(g_k, g_p, **CTC_GRAD_TOL))
-    imp = nll_k[2].item() == 0.0 and bool((g_k[2] == 0).all())
+    # batches under 3 rows hold no impossible sample (ctc_inputs)
+    imp = batch < 3 or (nll_k[2].item() == 0.0 and bool((g_k[2] == 0).all()))
     _, g_again = ctc_both(torch, ctc, x, labels, lens)[0]
     same = torch.equal(g_k, g_again)
     print(f"ctc B={batch} T={T} L={L} C={CTC_CLASSES}: nll max_abs_err "
           f"{e_nll:.3e} (rtol {CTC_NLL_TOL['rtol']}, atol "
           f"{CTC_NLL_TOL['atol']}), grad max_abs_err {e_grad:.3e}, max "
           f"rel {r_grad:.3e} (rtol {CTC_GRAD_TOL['rtol']}, atol "
-          f"{CTC_GRAD_TOL['atol']}), impossible sample zero {imp}, repeat "
+          f"{CTC_GRAD_TOL['atol']}), impossible sample "
+          f"{'skipped (B < 3)' if batch < 3 else f'zero {imp}'}, repeat "
           f"bit-equal {same} {'ok' if ok and imp and same else 'FAIL'}",
           flush=True)
     if not (ok and imp and same):
@@ -1263,14 +1291,15 @@ def _split_log(run_dir):
     return steps, vals
 
 
-def _val_batches(cfg, trainer_cls):
-    """The batches one validation of ``cfg`` reads: the CTC kernel's
-    launches in it for the HWR and autoencoder trainers."""
+def _val_batches(cfg, trainer_cls, shard=(1, 0)):
+    """The batches one validation of ``cfg`` reads (on rank ``shard[1]`` of
+    ``shard[0]``): the CTC kernel's launches in it for the HWR and
+    autoencoder trainers."""
     from handwriting_line_generation_tpu_torch.data import datasets as D
     from handwriting_line_generation_tpu_torch.training.loop import \
         validation_batches
     return sum(1 for _ in itertools.islice(
-        validation_batches(D.make_batcher(cfg.data, "valid")),
+        validation_batches(D.make_batcher(cfg.data, "valid", shard)),
         trainer_cls.VAL_BATCHES))
 
 
@@ -2085,6 +2114,546 @@ def infer_phase(torch, np, ge, tt, ts, card, root):
                 bound_ms=b_ms, bound_by=by)
 
 
+# phase 16: multi-process training on the one card.  Every run is the
+# port's train CLI under torchrun through this script's rank wrapper
+# (``chip_smoke.py --rank-run OUT [--deterministic] -- TRAIN ARGS``), which
+# counts the rank's CTC launches, its peak device memory and the files it
+# replaced into place (every checkpoint, log and strip is written so), and
+# keeps the first step's averaged gradients
+DIST_HWR_STEPS, DIST_HWR_RESUME_TO = 10, 12
+DIST_GAN_LESSONS = 14              # two cycles: the second one timed
+DIST_EXACT_STEPS = 4               # (b), (c): runs held bit-equal
+DIST_BUCKET_REPS = 3               # timed all_reduce_mean calls, after one
+DIST_TIMEOUT = 600                 # s for one torchrun call
+DIST_EXACT_BACKEND = "nccl"        # (b): a world of 1 on the card's NCCL
+# the first step's averaged gradients against one process on the
+# concatenated batch, of each tensor's largest entry: f32 rounding alone
+# moves the count lesson's first style-extractor convs (sums of ~1e5
+# cancelling terms) by up to 2.8e-4 of their max between two one-process
+# CPU runs that differ only in their thread count, at the CPU tests' GAN
+# widths; a faulty average (a sum not divided, groups balanced before
+# averaging, the wrong rows' draws) is off by O(1)
+DIST_GRAD_RTOL = 1e-3
+# the GAN's gradient groups a paper cycle averages (count 1, gen 2, auto
+# 3, disc 1, gen 2, auto 3, disc 1) and the lessons' group counts timed
+DIST_CYCLE_GROUPS = 13
+DIST_BUCKET_GROUPS = (1, 2, 3)
+
+
+def rank_run(args):
+    """One rank of a phase 16 run: ``train.main`` on the rest of the
+    arguments (TF32 off), then ``OUT/rank<R>.json`` with its exit code,
+    seconds, CTC launches, peak device memory, the paths it wrote, its log
+    entries, its backend and its grid; ``OUT/grads<R>.pt``: the tensors of
+    the trainer's first ``_average`` call after it (the first step's
+    gradients and loss, averaged over the ranks)."""
+    import os
+    out, args = pathlib.Path(args[0]), args[1:]
+    deterministic = args[:1] == ["--deterministic"]
+    args = args[1:] if deterministic else args
+    if args[:1] != ["--"]:
+        raise SystemExit("chip_smoke.py --rank-run OUT [--deterministic] "
+                         "-- TRAIN ARGS")
+    if deterministic:                 # the exact runs (b) and (c)
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+    if deterministic:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    # f32 as in the other phases (and the one-process runs beside them)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from handwriting_line_generation_tpu_torch import train as cli
+    from handwriting_line_generation_tpu_torch.ops import ctc
+    from handwriting_line_generation_tpu_torch.training.loop import \
+        CheckpointedTrainer as trainer
+    rank = int(os.environ.get("RANK", "0"))
+    out.mkdir(parents=True, exist_ok=True)
+    written, replace = [], os.replace
+    seen = dict(log=[], backend=None, grid=None)
+
+    def recording(src, dst, *a, **kw):
+        written.append(str(dst))
+        return replace(src, dst, *a, **kw)
+
+    def log_line(entry, show=cli.log_line):
+        seen["log"].append(entry)
+        show(entry)
+
+    def init(*a, join=cli.init_distributed, **kw):
+        n = join(*a, **kw)
+        seen["backend"] = torch.distributed.get_backend()
+        return n
+
+    def grid(*a, make=cli.make_mesh, **kw):
+        m = make(*a, **kw)
+        seen["grid"] = [m.data, m.model]
+        return m
+    def first_average(self, tensors, average=trainer._average, kept=[]):
+        average(self, tensors)
+        if not kept:
+            kept.append(rank)
+            torch.save([t.detach().cpu() for t in tensors],
+                       out / f"grads{rank}.pt")
+    os.replace = recording
+    cli.log_line, cli.init_distributed, cli.make_mesh = log_line, init, grid
+    trainer._average = first_average
+    ctc.ctc_loss_cuda.launches = 0
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(args[1:])
+    finally:
+        os.replace = replace
+    secs = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated()
+            if torch.cuda.is_available() else 0)
+    (out / f"rank{rank}.json").write_text(json.dumps(dict(
+        rc=rc, secs=secs, launches=ctc.ctc_loss_cuda.launches,
+        peak_bytes=peak, written=written, **seen)))
+    return rc
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _dist_start(world, out, train_args, deterministic=False,
+                backend="gloo"):
+    """The train CLI through :func:`rank_run`: ``world`` ranks under
+    torchrun (``--distributed``), or one plain process when ``world`` is
+    0.  Returns the started process."""
+    wrapper = ([str(REPO / "chip_smoke.py"), "--rank-run", str(out)]
+               + (["--deterministic"] if deterministic else []) + ["--"]
+               + list(train_args) + ["--device", DEVICE])
+    if world:
+        cmd = [sys.executable, "-m", "torch.distributed.run",
+               "--nproc_per_node", str(world), "--master_port",
+               str(_free_port()), *wrapper, "--distributed",
+               "--dist-backend", backend]
+    else:
+        cmd = [sys.executable, *wrapper]
+    print(" ".join(cmd[1:]), flush=True)
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, cwd=REPO)
+
+
+def _dist_wait(proc, world, out):
+    """The run's output and its ranks' records; raises with the output's
+    end if a rank failed."""
+    try:
+        text, _ = proc.communicate(timeout=DIST_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise
+    recs = [json.loads((pathlib.Path(out) / f"rank{r}.json").read_text())
+            if (pathlib.Path(out) / f"rank{r}.json").exists() else None
+            for r in range(max(world, 1))]
+    if proc.returncode != 0 or any(r is None or r["rc"] != 0 for r in recs):
+        print(text[-6000:])
+        raise AssertionError(f"{' '.join(proc.args[1:4])}... exited "
+                             f"{proc.returncode}")
+    return text, recs
+
+
+def _rank_logs(recs):
+    """The log entries of each rank, its ``rank`` key dropped."""
+    return [[{k: v for k, v in e.items() if k != "rank"} for e in r["log"]]
+            for r in recs]
+
+
+def _losses(entries):
+    return [(e.get("iteration"), k, v) for e in entries
+            for k, v in sorted(e.items()) if k.lower().endswith("loss")]
+
+
+def _shard_batches(D, cfg, n):
+    """The first ``n`` batches of each of two ranks' shards, padded to
+    their common shapes and concatenated: the one-process run's batches."""
+    import numpy as np
+    its = [D.forever(D.make_batcher(cfg.data, "train", (2, r)),
+                     seed=cfg.trainer.seed) for r in range(2)]
+    out = []
+    for _ in range(n):
+        pair = [next(it) for it in its]
+        W = max(b["image"].shape[2] for b in pair)
+        L = max(b["label"].shape[1] for b in pair)
+        a, b = (D.pad_batch(x, W, L) for x in pair)
+        out.append({k: (np.concatenate([v, b[k]]) if isinstance(v, np.ndarray)
+                        else v + b[k] if isinstance(v, list) else v)
+                    for k, v in a.items()})
+    return out
+
+
+def _record_first(trainer):
+    """The tensors of ``trainer``'s first ``_average`` call (in one process
+    nothing to average): the first step's gradients and loss."""
+    got = []
+
+    def record(tensors):
+        if not got:
+            got.extend(t.detach().cpu().clone() for t in tensors)
+    trainer._average = record
+    return got
+
+
+def _first_grads(torch, out, want, what):
+    """The two ranks' first averaged gradients (:func:`rank_run`'s
+    ``grads<R>.pt``): bit-equal to each other, and each tensor within
+    ``DIST_GRAD_RTOL`` of its largest entry in ``want``, the one-process
+    run's on the concatenated batch.  Returns the worst tensor's ratio."""
+    a, b = (torch.load(pathlib.Path(out) / f"grads{r}.pt",
+                       weights_only=True) for r in range(2))
+    _same(torch, a, b, f"{what}: the ranks' first averaged gradients")
+    if len(a) != len(want):
+        raise AssertionError(f"{what}: {len(a)} averaged tensors, {len(want)}"
+                             f" in one process")
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(a, want)):
+        err = float((g.double() - w.double()).abs().max())
+        scale = float(w.abs().max())
+        rel = err / scale if scale else (math.inf if err else 0.0)
+        if rel > DIST_GRAD_RTOL:
+            raise AssertionError(f"{what}: averaged tensor {i} is {rel:.3e} "
+                                 f"of its max from one process (tolerance "
+                                 f"{DIST_GRAD_RTOL})")
+        worst = max(worst, rel)
+    return worst
+
+
+def _adam_bound(lr, betas, steps):
+    """The CPU tests' bound on two runs' parameters after ``steps`` Adam
+    steps of rate <= ``lr``: 2 lr x the sum of each step's largest |update|
+    / lr (``sqrt(sum a_k^2 / w_k)``) + 1e-6."""
+    b1, b2 = betas
+    total = 0.0
+    for t in range(1, steps + 1):
+        a = [(1 - b1) * b1 ** (t - k) / (1 - b1 ** t) for k in range(1, t + 1)]
+        w = [(1 - b2) * b2 ** (t - k) / (1 - b2 ** t) for k in range(1, t + 1)]
+        total += math.sqrt(sum(x * x / y for x, y in zip(a, w)))
+    return 2 * lr * total + 1e-6
+
+
+def _param_gap(torch, got, want, bound_of):
+    """Max |got - want| over the float tensors of two model state_dicts
+    (``.u`` buffers aside), each against ``bound_of(name)``; the worst
+    tensor's gap and bound."""
+    worst = (0.0, 1.0, "")
+    for name, v in want.items():
+        if name.endswith(".u") or not v.is_floating_point():
+            continue
+        gap = float((got[name].float().cpu() - v.float().cpu()).abs().max())
+        bound = bound_of(name)
+        if gap > bound:
+            raise AssertionError(f"{name}: the two ranks' run is {gap:.3e} "
+                                 f"from the one-process run (bound "
+                                 f"{bound:.3e})")
+        worst = max(worst, (gap, bound, name), key=lambda x: x[0] / x[1])
+    return worst
+
+
+def _checkpoint(run_dir):
+    import torch
+    return torch.load(pathlib.Path(run_dir) / "checkpoint-latest.pt",
+                      map_location="cpu", weights_only=True)
+
+
+def _same(torch, a, b, what):
+    """Two nests of tensors equal bit for bit."""
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            raise AssertionError(f"{what}: keys differ")
+        for k in a:
+            _same(torch, a[k], b[k], f"{what}/{k}")
+    elif isinstance(a, (list, tuple)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same(torch, x, y, f"{what}[{i}]")
+    elif isinstance(a, torch.Tensor):
+        if not torch.equal(a, b):
+            diff = float((a.double() - b.double()).abs().max())
+            raise AssertionError(f"{what}: not bit-equal (max diff "
+                                 f"{diff:.3e})")
+    elif a != b:
+        raise AssertionError(f"{what}: {a} != {b}")
+
+
+def _only_rank0_wrote(recs, run_dir):
+    mine = [[p for p in r["written"] if p.startswith(str(run_dir))]
+            for r in recs]
+    if not mine[0] or any(mine[1:]):
+        raise AssertionError(f"single writer broken: rank 0 wrote "
+                             f"{len(mine[0])} files under {run_dir}, the "
+                             f"others {[len(m) for m in mine[1:]]}")
+    return len(mine[0])
+
+
+def _bucket_rank(rank, port, shapes, device, out):
+    """One of two gloo ranks on ``device`` timing ``Mesh.all_reduce_mean``
+    of the paper GAN's gradient groups (1, 2 and 3 groups a call)."""
+    import os
+    import torch
+    from handwriting_line_generation_tpu_torch.parallel import mesh as pm
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank))
+    pm.init_distributed("gloo", device)
+    mesh = pm.make_mesh(2, 1)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    res = {}
+    for groups in DIST_BUCKET_GROUPS:
+        ts = [torch.randn(s, device=device) for _ in range(groups)
+              for s in shapes]
+        times = []
+        for i in range(DIST_BUCKET_REPS + 1):
+            sync()
+            t0 = time.perf_counter()
+            mesh.all_reduce_mean(ts)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        res[groups] = dict(ms=statistics.median(times[1:]),
+                           bytes=sum(t.numel() * 4 for t in ts))
+        del ts
+    if rank == 0:
+        pathlib.Path(out).write_text(json.dumps(res))
+    pm.barrier()
+    pm.shutdown()
+
+
+def dist_bucket_rates(torch, card, work):
+    """Ms a call of the gradient bucket's ``all_reduce`` over two gloo
+    ranks on this card, at the paper GAN's 1, 2 and 3 groups; ms a cycle
+    of its 13."""
+    from handwriting_line_generation_tpu_torch.models.hw_with_style import \
+        HWWithStyle
+    with torch.device("meta"):
+        model = HWWithStyle(_config("iam_gan_paper.json", []).model)
+    shapes = [tuple(p.shape) for p in model.parameters()]
+    n = sum(math.prod(s) for s in shapes)
+    out = pathlib.Path(work) / "bucket.json"
+    torch.multiprocessing.start_processes(
+        _bucket_rank, args=(_free_port(), shapes, DEVICE, str(out)), nprocs=2,
+        join=True, start_method="spawn")
+    res = {int(k): v for k, v in json.loads(out.read_text()).items()}
+    per_group = res[1]["ms"]
+    for g, r in sorted(res.items()):
+        print(f"gradient bucket all_reduce_mean, 2 gloo ranks on one card "
+              f"(through the host, not multi-card NCCL): {g} group(s) of "
+              f"{n / 1e6:.1f} M f32, {r['bytes'] / 1e6:.1f} MB: "
+              f"{r['ms']:.2f} ms {card}", flush=True)
+    print(f"gradient buckets a 7-lesson paper cycle: {DIST_CYCLE_GROUPS} "
+          f"groups, ~{DIST_CYCLE_GROUPS * per_group:.0f} ms at the 1-group "
+          f"rate {card}", flush=True)
+    return res
+
+
+def dist_phase(torch, tt, F, ctc, card, root, cli_root):
+    """Phase 16: (a) ``iam_hwr`` for 10 steps (profiled) and
+    ``iam_gan_paper`` for 14 lessons on two gloo ranks on this card through
+    torchrun, against one process on the concatenated batches, rank 0 the
+    only writer, the HWR run resumed in one process; (b) ``iam_hwr``
+    for 4 steps as a world of 1 on NCCL and (c) on a 1 x 2 ``--fsdp 2``
+    grid of two gloo ranks, each bit-equal to the plain run; (d)
+    ``graft_entry.dryrun_multichip(2)`` on the card; (e) the profiles name
+    the CTC kernel; the bucket's all_reduce rates.  Returns the kernels-line
+    rows of the distributed runs' CTC paths."""
+    import numpy as np
+    from handwriting_line_generation_tpu_torch import graft_entry
+    from handwriting_line_generation_tpu_torch.data import datasets as D
+    from handwriting_line_generation_tpu_torch.training.gan_trainer import \
+        GanTrainer
+    from handwriting_line_generation_tpu_torch.training.hwr_trainer import \
+        HWRTrainer
+    from handwriting_line_generation_tpu_torch.training.train_state import \
+        partition_label
+    t_phase = time.perf_counter()
+    root = pathlib.Path(root)
+    cli_root = pathlib.Path(cli_root)
+    fixture = [f"data.data_dir={CLI_FIXTURE}"]
+    hwr_ov = fixture + [f"data.batch_size={CLI_BATCH}", "trainer.log_step=5",
+                        f"trainer.val_step={DIST_HWR_STEPS}",
+                        f"trainer.save_step_minor={DIST_HWR_STEPS}"]
+
+    def hwr_args(name, ov=hwr_ov):
+        return ["-c", str(REPO / "configs" / "iam_hwr.json"),
+                *_pairs(ov + [f"trainer.save_dir={root / name}"])]
+
+    # (a) iam_hwr on two ranks, profiled; (b) and (c) beside it: the plain
+    # 4-step run, the same as a world of 1 on NCCL and on a 1 x 2 grid
+    exact = hwr_ov + [f"trainer.save_step_minor={DIST_EXACT_STEPS}"]
+    runs = {"a_hwr": (2, _dist_start(2, root / "out_a_hwr", hwr_args(
+                "a_hwr") + ["-i", str(DIST_HWR_STEPS), "--profile",
+                            str(root / "prof")])),
+            "plain": (0, _dist_start(0, root / "out_plain", hwr_args(
+                "plain", exact) + ["-i", str(DIST_EXACT_STEPS)],
+                deterministic=True)),
+            "nccl1": (1, _dist_start(1, root / "out_nccl1", hwr_args(
+                "nccl1", exact) + ["-i", str(DIST_EXACT_STEPS)],
+                deterministic=True, backend=DIST_EXACT_BACKEND)),
+            "fsdp2": (2, _dist_start(2, root / "out_fsdp2", hwr_args(
+                "fsdp2", exact) + ["-i", str(DIST_EXACT_STEPS), "--fsdp",
+                                   "2"], deterministic=True))}
+    res = {k: _dist_wait(p, w, root / f"out_{k}")
+           for k, (w, p) in runs.items()}
+
+    # (a) iam_hwr: the ranks' losses equal, rank 0 the only writer, CTC
+    # launches a step and a local validation batch each, the first step's
+    # averaged gradients those of one process on the concatenated batch
+    text, recs = res["a_hwr"]
+    logs = _rank_logs(recs)
+    if not _losses(logs[0]) or _losses(logs[0]) != _losses(logs[1]):
+        raise AssertionError("the two ranks logged different losses")
+    run_dir = root / "a_hwr" / "iam_hwr"
+    wrote = _only_rank0_wrote(recs, run_dir)
+    cfg = _config("iam_hwr.json", hwr_ov)
+    val_local = _val_batches(cfg, HWRTrainer, shard=(2, 0))
+    want = DIST_HWR_STEPS + val_local
+    launches_hwr = [r["launches"] for r in recs]
+    if DEVICE == "cuda" and launches_hwr != [want, want]:
+        raise AssertionError(f"iam_hwr on two ranks: CTC launches "
+                             f"{launches_hwr}, {want} due on each")
+    ref_cfg = _config("iam_hwr.json",
+                      hwr_ov + [f"trainer.save_dir={root / 'ref'}"])
+    ref = HWRTrainer(ref_cfg, device=DEVICE)
+    first = _record_first(ref)
+    ref.train(iter(_shard_batches(D, ref_cfg, DIST_HWR_STEPS)),
+              iterations=DIST_HWR_STEPS, valid=None)
+    rel = _first_grads(torch, root / "out_a_hwr", first, "iam_hwr")
+    bound = _adam_bound(ref_cfg.optimizer.lr, ref_cfg.optimizer.betas,
+                        DIST_HWR_STEPS)
+    gap = _param_gap(torch, _checkpoint(run_dir)["model"],
+                     ref.model.state_dict(), lambda name: bound)
+    del ref
+    print(f"distributed iam_hwr, 2 gloo ranks on one card: losses "
+          f"{[e['loss'] for e in logs[0] if 'loss' in e]} on both; CTC "
+          f"launches {launches_hwr}; rank 0 wrote {wrote} files, rank 1 "
+          f"none; the first step's averaged gradients and loss bit-equal "
+          f"on both ranks and within {rel:.3e} of each tensor's max from "
+          f"one process on the concatenated batch (tolerance "
+          f"{DIST_GRAD_RTOL}); parameters after {DIST_HWR_STEPS} steps "
+          f"{gap[0]:.3e} from it (Adam bound {gap[1]:.3e}, {gap[2]}); "
+          f"{[round(r['secs'], 1) for r in recs]} s; peak "
+          f"{[round(r['peak_bytes'] / 2**30, 3) for r in recs]} GiB a rank "
+          f"{card}", flush=True)
+    # (e) the profiles: a Chrome trace a rank, naming the CTC kernel
+    for r in range(2):
+        trace = (root / "prof" / f"trace_rank{r}.json").read_text()
+        if DEVICE == "cuda" and "ctc_kernel" not in trace:
+            raise AssertionError(f"rank {r}'s trace names no ctc_kernel")
+    print(f"--profile: trace_rank0.json and trace_rank1.json, each naming "
+          f"ctc_kernel", flush=True)
+
+    # (b), (c): bit-equal to the plain run
+    plain = _checkpoint(root / "plain" / "iam_hwr")
+    for k in ("nccl1", "fsdp2"):
+        _same(torch, _checkpoint(root / k / "iam_hwr"), plain, k)
+    ran = [(r["backend"], r["grid"]) for k in ("nccl1", "fsdp2")
+           for r in res[k][1]]
+    if ran != [(DIST_EXACT_BACKEND, [1, 1])] + [("gloo", [1, 2])] * 2:
+        raise AssertionError(f"(b)/(c) ran as {ran}")
+    print(f"iam_hwr {DIST_EXACT_STEPS} steps, deterministic algorithms: "
+          f"a world of 1 on NCCL and --fsdp 2 (1 x 2 gloo ranks, sharded "
+          f"Adam) each wrote the plain run's checkpoint-latest bit for bit",
+          flush=True)
+
+    # (a) resume: the two ranks' checkpoint in one process, beside (d) the
+    # graft entry's multichip dry run on two gloo ranks
+    p = _dist_start(0, root / "out_resume", hwr_args(
+        "a_hwr", hwr_ov + ["trainer.log_step=2", "trainer.save_step_minor=2",
+                           "trainer.val_step=0"])
+        + ["-r", "-i", str(DIST_HWR_RESUME_TO)])
+    graft_entry.dryrun_multichip(2, device=DEVICE, backend="gloo")
+    _, recs = _dist_wait(p, 0, root / "out_resume")
+    its = [e["iteration"] for e in _rank_logs(recs)[0]]
+    meta = json.loads((run_dir / "checkpoint-latest.json").read_text())
+    if its != [DIST_HWR_RESUME_TO] or meta["iteration"] != DIST_HWR_RESUME_TO:
+        raise AssertionError(f"the two ranks' run resumed in one process "
+                             f"logged {its}, saved {meta['iteration']}")
+    print(f"the two ranks' checkpoint-latest resumed in one process: "
+          f"steps {DIST_HWR_STEPS + 1}..{DIST_HWR_RESUME_TO}", flush=True)
+
+    # (a) the paper GAN on two ranks, the card to itself
+    gan_ov = fixture + [
+        f"model.pretrained_hwr={cli_root}/iam_hwr/checkpoint-latest",
+        f"trainer.encoder_weights={cli_root}/iam_auto_2tight/"
+        "checkpoint-latest", "data.text_data=", "trainer.log_step=7",
+        f"trainer.val_step={DIST_GAN_LESSONS}",
+        f"trainer.save_step_minor={DIST_GAN_LESSONS}",
+        f"trainer.print_every={DIST_GAN_LESSONS}"]
+    p = _dist_start(2, root / "out_gan", [
+        "-c", str(REPO / "configs" / "iam_gan_paper.json"),
+        *_pairs(gan_ov + [f"trainer.save_dir={root / 'gan'}"]),
+        "-i", str(DIST_GAN_LESSONS)])
+    text, recs = _dist_wait(p, 2, root / "out_gan")
+    logs = _rank_logs(recs)
+    if not _losses(logs[0]) or _losses(logs[0]) != _losses(logs[1]):
+        raise AssertionError("the GAN's two ranks logged different losses")
+    run_dir = root / "gan" / "iam_gan_paper"
+    wrote = _only_rank0_wrote(recs, run_dir)
+    launches_gan = [r["launches"] for r in recs]
+    want = 4 * DIST_GAN_LESSONS // 7   # genRecog, reconRecog twice a cycle
+    if DEVICE == "cuda" and launches_gan != [want, want]:
+        raise AssertionError(f"the GAN on two ranks: CTC launches "
+                             f"{launches_gan}, {want} due on each")
+    # lessons 8-14 (the window of the log entry at 14): every kind warm,
+    # no validation, save or dump inside
+    two_rate = 4 / [e for e in logs[0] if "sec_per_iter" in e][-1][
+        "sec_per_iter"]
+    cfg = _config("iam_gan_paper.json",
+                  gan_ov + [f"trainer.save_dir={root / 'gan_ref'}"])
+    ref = GanTrainer(cfg, device=DEVICE)
+    ref.text.batch_size //= 2            # a rank's texts, on both ranks
+    draw = ref.text.get_batch
+    ref.text.get_batch = lambda **kw: {
+        k: (np.concatenate([v, v]) if isinstance(v, np.ndarray)
+            else v + v if isinstance(v, list) else v)
+        for k, v in draw(**kw).items()}
+    # count, auto, disc, auto, disc a cycle pull image batches
+    images = _shard_batches(D, cfg, 5 * DIST_GAN_LESSONS // 7)
+    first = _record_first(ref)
+    rlog = ref.train(iter(images), iterations=DIST_GAN_LESSONS, valid=None)
+    rel = _first_grads(torch, root / "out_gan", first, "iam_gan_paper")
+    one_rate = 4 / rlog.entries[-1]["sec_per_iter"]
+    o, d = cfg.optimizer, cfg.optimizer_discriminator
+    cycles = DIST_GAN_LESSONS // 7
+    bounds = {"main": _adam_bound(o.lr, o.betas, 3 * cycles),
+              "disc": _adam_bound(d.lr, d.betas, 2 * cycles), "frozen": 1e-6}
+    frozen = cfg.model.hwr_frozen
+    gap = _param_gap(torch, _checkpoint(run_dir)["model"],
+                     ref.model.state_dict(), lambda name: bounds[
+                         partition_label(name, hwr_frozen=frozen)])
+    peak = [r["peak_bytes"] / 2 ** 30 for r in recs]
+    del ref
+    torch.cuda.empty_cache()
+    print(f"distributed iam_gan_paper, {DIST_GAN_LESSONS} lessons, 2 gloo "
+          f"ranks on one card (through the host, not multi-card NCCL): "
+          f"losses equal on both ranks; CTC launches {launches_gan}; rank 0 "
+          f"wrote {wrote} files, rank 1 none; the first lesson's (count) "
+          f"averaged gradients and loss bit-equal on both ranks and within "
+          f"{rel:.3e} of each tensor's max from one process on the "
+          f"concatenated batch (tolerance {DIST_GRAD_RTOL}); parameters "
+          f"after {DIST_GAN_LESSONS} lessons {gap[0]:.3e} from it (Adam "
+          f"bound {gap[1]:.3e}, {gap[2]}); GAN-trained lines/s over lessons "
+          f"8-14: "
+          f"{two_rate:.1f} on 2 ranks against {one_rate:.1f} in one process "
+          f"(batches assembled first); peak {peak[0]:.3f} and {peak[1]:.3f} "
+          f"GiB a rank {card}", flush=True)
+
+    dist_bucket_rates(torch, card, root)
+
+    # the CTC kernel at the distributed runs' per-rank shapes
+    rows = []
+    for path, (b, t, lab), launches in (
+            ("iam_hwr", (2, 112, 24), launches_hwr),
+            ("iam_gan_paper genRecog", (2, 500, 96), launches_gan)):
+        err = check_ctc(torch, ctc, t, lab, seed=t + lab, batch=b)
+        times = time_ctc(torch, tt, F, ctc, t, lab, card, batch=b)
+        rows += [(f"distributed {path}, rank {r} of 2", (b, t, lab), n, err,
+                  times) for r, n in enumerate(launches)]
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows
+
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2311,9 +2880,16 @@ def main():
     # kernel at the evaluation path's shapes, and the evaluation rates
     infer = infer_phase(torch, np, ge, tt, ts, card,
                         pathlib.Path(ckpts.name, "cli"))
+
+    # 16. multi-process training on the one card: the train CLI under
+    # torchrun (gloo ranks sharing it, a world of 1 on NCCL, --fsdp 2),
+    # against one process, and the graft entry's dry run
+    dist_rows = dist_phase(torch, tt, F, ctc, card,
+                           pathlib.Path(ckpts.name, "dist"),
+                           pathlib.Path(ckpts.name, "cli"))
     ckpts.cleanup()
 
-    # 16. summary
+    # 17. summary
     print(smi)
     # the CTC kernel once per path that runs it: each entry's launches come
     # from that path's run, its times from that path's main bucket
@@ -2325,7 +2901,7 @@ def main():
         ("GAN training", (4,) + GAN_CTC_BUCKETS[0], gan_launches, gan_err,
          gan_t),
         ("GAN training run", (4,) + GAN_CTC_BUCKETS[0], run_launches,
-         gan_err, gan_t)] + cli_rows
+         gan_err, gan_t)] + cli_rows + dist_rows
     print(json.dumps({"kernels": [{
         "name": "gen_epilogue", "route": "cuda",
         "source": "handwriting_line_generation_tpu_torch/csrc/gen_epilogue.cu",
@@ -2352,4 +2928,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-run"]:
+        sys.exit(rank_run(sys.argv[2:]))
     sys.exit(main())

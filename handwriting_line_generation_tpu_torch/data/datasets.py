@@ -33,7 +33,7 @@ import queue
 import threading
 import warnings
 from collections import defaultdict
-from typing import Callable, Dict, Iterator, List, Optional, Sequence
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -50,6 +50,9 @@ from handwriting_line_generation_tpu_torch.data.rimes import \
     parse_rimes_lines_xml
 from handwriting_line_generation_tpu_torch.data.synthetic import (
     SyntheticCorpus, normalize_image,
+)
+from handwriting_line_generation_tpu_torch.parallel.mesh import (
+    local_batch_size, shard_records_for_host,
 )
 from handwriting_line_generation_tpu_torch.utils.png import read_png_gray
 
@@ -431,6 +434,29 @@ class AuthorBatcher:
             yield batch
 
 
+def pad_batch(batch: Dict, width: int, label_len: int,
+              spaced_len: int = 0) -> Dict:
+    """``batch`` widened to ``width`` image columns, ``label_len`` label
+    slots and ``spaced_len`` spaced-label frames (where it is narrower), as
+    the batcher pads a shorter line in a wider bucket: paper-white columns
+    (255 for u8 pixels), background fg mask, blank labels."""
+    def pad(a, n, axis, value):
+        if a is None or a.shape[axis] >= n:
+            return a
+        widths = [(0, 0)] * a.ndim
+        widths[axis] = (0, n - a.shape[axis])
+        return np.pad(np.asarray(a), widths, constant_values=value)
+    image = batch["image"]
+    out = dict(batch, image=pad(image, width, 2, 255 if image.dtype ==
+                                np.uint8 else PAD_VALUE),
+               label=pad(batch["label"], label_len, 1, 0))
+    for key, n, axis in (("fg_mask", width, 2), ("spaced_label",
+                                                 spaced_len, 1)):
+        if batch.get(key) is not None:
+            out[key] = pad(batch[key], n, axis, 0)
+    return out
+
+
 def forever(batcher, seed: int = 0, shuffle: bool = True) -> Iterator[Dict]:
     """Infinite epoch-cycling iterator (the trainers are iteration-based);
     epoch ``e`` shuffles with ``default_rng(seed + e)``.  An epoch that
@@ -454,11 +480,18 @@ def get_charset(cfg: DataConfig) -> Charset:
     return _charset_named(cfg.charset)
 
 
-def make_batcher(cfg: DataConfig, split: str):
+def make_batcher(cfg: DataConfig, split: str,
+                 shard: Tuple[int, int] = (1, 0)):
     """The batcher of ``cfg.dataset`` over ``split``: a
     :class:`LineBatcher` for ``iam_lines``/``iam_words``, else an
     :class:`AuthorBatcher` (fg masks as ``cfg.fg_masks`` says; RIMES pages
-    paired every way when ``a_batch_size`` is 2)."""
+    paired every way when ``a_batch_size`` is 2).
+
+    ``shard``: ``(n, i)``, share ``i`` of ``n`` data-parallel shares (a
+    mesh's ``data`` size and this rank's data index): the records are
+    whole authors dealt round-robin (every ``n``-th line for a line
+    dataset), and the batch size is the share's: ``batch_size / n`` lines,
+    or author groups for an author dataset."""
     charset = get_charset(cfg)
     if cfg.dataset == "synthetic":
         records = synthetic_records(split, cfg.img_height, charset,
@@ -474,10 +507,23 @@ def make_batcher(cfg: DataConfig, split: str):
                                 cfg.max_width)
     else:
         raise ValueError(f"unknown dataset {cfg.dataset!r}")
-    if cfg.dataset in ("iam_lines", "iam_words"):
-        return LineBatcher(records, charset, cfg.batch_size, cfg,
+    line_level = cfg.dataset in ("iam_lines", "iam_words")
+    batch_size = cfg.batch_size
+    n, i = shard
+    if n > 1:
+        if line_level:                # batch_size counts lines
+            batch_size = local_batch_size(cfg.batch_size, 1, n)
+        else:                         # batch_size counts author groups
+            batch_size = local_batch_size(
+                cfg.batch_size * cfg.a_batch_size, cfg.a_batch_size,
+                n) // cfg.a_batch_size
+        records = shard_records_for_host(
+            records, n, i, by_author=None if line_level
+            else (lambda r: r.author))
+    if line_level:
+        return LineBatcher(records, charset, batch_size, cfg,
                            with_fg=False)
-    return AuthorBatcher(records, charset, cfg.batch_size, cfg.a_batch_size,
+    return AuthorBatcher(records, charset, batch_size, cfg.a_batch_size,
                          cfg, with_fg=cfg.fg_masks,
                          pair_combinations=cfg.dataset == "rimes_author")
 

@@ -32,6 +32,7 @@ from handwriting_line_generation_tpu_torch.models.layers import (
     AdaIN, EqualConv, FusedUpsample, NoiseInjection, blur3x3, conv, dense,
     instance_stats, pixel_norm, upsample_nearest,
 )
+from handwriting_line_generation_tpu_torch.ops import rows
 from handwriting_line_generation_tpu_torch.ops.gen_epilogue import \
     block_epilogue
 
@@ -46,8 +47,7 @@ def _noise_plane(x: torch.Tensor, given: Optional[torch.Tensor],
         raise ValueError("pass noise planes or a torch.Generator to draw "
                          "them from")
     B, _, H, W = x.shape
-    return torch.randn((B, H, W), generator=generator, device=x.device,
-                       dtype=x.dtype)
+    return rows.randn((B, H, W), generator, device=x.device, dtype=x.dtype)
 
 
 class StyledConvBlock(nn.Module):

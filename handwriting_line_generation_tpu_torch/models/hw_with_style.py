@@ -36,6 +36,7 @@ from handwriting_line_generation_tpu_torch.models.discriminator import \
 from handwriting_line_generation_tpu_torch.models.generator import \
     SpacedGenerator
 from handwriting_line_generation_tpu_torch.models.hwr import build_hwr
+from handwriting_line_generation_tpu_torch.ops import rows
 from handwriting_line_generation_tpu_torch.ops.align import viterbi_align
 from handwriting_line_generation_tpu_torch.ops.ctc import mask_frames_to_blank
 from handwriting_line_generation_tpu_torch.ops.spacing import (
@@ -138,8 +139,8 @@ class HWWithStyle(nn.Module):
         if self.cfg.style.vae and (vae_generator is not None
                                    or vae_eps is not None):
             mu, log_sigma = style
-            eps = (torch.randn(mu.shape, generator=vae_generator,
-                               device=mu.device, dtype=mu.dtype)
+            eps = (rows.randn(mu.shape, vae_generator, device=mu.device,
+                              dtype=mu.dtype)
                    if vae_eps is None else vae_eps.to(mu))
             gen_style = mu + torch.exp(log_sigma) * eps
         else:

@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from handwriting_line_generation_tpu_torch.ops import rows
+
 
 def group_count(channels: int) -> int:
     """Number of GroupNorm groups per the reference's rule: 8 when divisible
@@ -256,7 +258,7 @@ def channel_dropout(x: torch.Tensor, rate: float,
         return x
     keep = 1.0 - rate
     shape = x.shape[:2] + (1,) * (x.ndim - 2) if per_channel else x.shape
-    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    mask = rows.rand(shape, generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 

@@ -29,6 +29,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from handwriting_line_generation_tpu_torch.ops import rows
+
 
 def _to_u8_scale(img: torch.Tensor) -> torch.Tensor:
     """normalized -> [0, 255] float (paper 255, ink 0)."""
@@ -69,7 +71,7 @@ def tensmeyer_brightness(img: torch.Tensor,
     (foreground, background), drawn from ``generator`` when None."""
     B = img.shape[0]
     if shifts is None:
-        shifts = torch.randn((B, 2), generator=generator, device=img.device)
+        shifts = rows.randn((B, 2), generator, device=img.device)
     u8 = _to_u8_scale(img)
     th = otsu_threshold(u8)
     is_bg = (u8 > th[:, None, None, None]).to(img.dtype)
@@ -140,8 +142,8 @@ def grid_warp(img: torch.Tensor, generator: Optional[torch.Generator] = None,
     bilinearly to the dense source displacement."""
     B, H, W, _ = img.shape
     if offsets is None:
-        offsets = torch.randn((B, H // spacing + 2, W // spacing + 2, 2),
-                              generator=generator, device=img.device)
+        offsets = rows.randn((B, H // spacing + 2, W // spacing + 2, 2),
+                             generator, device=img.device)
     flow = resize_bilinear(std * offsets, (H, W))
     ys = torch.arange(H, device=img.device)[:, None] + flow[..., 0]
     xs = torch.arange(W, device=img.device)[None, :] + flow[..., 1]
@@ -181,7 +183,8 @@ def apply_augmentation(kind: Union[str, bool, None], img: torch.Tensor,
                                              device=img.device)
                              for k in ("stretch", "skew"))
         else:
-            u = torch.rand((2,), generator=generator, device=img.device)
+            u = torch.rand((2,), generator=rows.plain(generator),
+                           device=img.device)
             stretch = (1 - max_stretch) + u[0] * (2 * max_stretch)
             skew = -max_rot_rad + u[1] * (2 * max_rot_rad)
         stretch_b, skew_b = stretch.expand(B), skew.expand(B)

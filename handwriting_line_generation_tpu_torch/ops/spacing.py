@@ -17,6 +17,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from handwriting_line_generation_tpu_torch.ops import rows
+
 
 def onehot(labels: torch.Tensor, num_class: int) -> torch.Tensor:
     """``[...]`` int -> ``[..., num_class]`` float32 one-hot (blank = 0)."""
@@ -50,8 +52,8 @@ def insert_spaces(labels: torch.Tensor, label_lengths: torch.Tensor,
         if generator is None:
             raise ValueError("count jitter needs a torch.Generator or the "
                              "normals")
-        normals = (torch.randn((B, L), generator=generator, device=dev),
-                   torch.randn((B, L), generator=generator, device=dev))
+        normals = (rows.randn((B, L), generator, device=dev),
+                   rows.randn((B, L), generator, device=dev))
     c = counts[..., 0].float()
     if normals is not None:
         c = c + count_std * normals[0].float()

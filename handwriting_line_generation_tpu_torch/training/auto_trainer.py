@@ -11,7 +11,9 @@ seeded in :meth:`AutoTrainer.init_state` (the JAX trainer splits
 The trainer takes any iterator of batch dicts (``image`` u8 ``[B, H, W, 1]``
 or normalized float, ``label`` ``[B, L]``, ``label_lengths`` ``[B]``,
 ``width`` ``[B]``, ``gt`` strings), as ``HWRTrainer`` does, and
-its ``train`` is the loop of ``training/loop.py``.
+its ``train`` is the loop of ``training/loop.py``.  Under a mesh it
+steps as ``HWRTrainer`` does: the rows of the global batch's dropout masks,
+the gradients and losses averaged over ``data`` in one bucket before Adam.
 """
 
 from __future__ import annotations
@@ -74,7 +76,7 @@ class AutoTrainer(CheckpointedTrainer):
         self.optimizer, self.scheduler = make_optimizer(
             self.model.parameters(),
             dataclasses.replace(c.optimizer, lr_schedule="none"),
-            c.trainer.iterations)
+            c.trainer.iterations, self._shard)
         self.generator = torch.Generator(self.device).manual_seed(seed + 1)
         self.step = 0
 
@@ -94,7 +96,7 @@ class AutoTrainer(CheckpointedTrainer):
         width = None if width is None else self._tensor(width)
         self.model.train()
         image = dequantize_image(image, width)
-        recon, logp = self.model(image, self.generator)
+        recon, logp = self.model(image, self._rows(self.generator))
         auto = (recon - image).abs().mean()
         recog = ctc_loss_fast(logp, label, label_lengths)
         loss = self.w_auto * auto + self.w_recog * recog
@@ -103,15 +105,20 @@ class AutoTrainer(CheckpointedTrainer):
     def train_step(self, image, label, label_lengths, width=None
                    ) -> Dict[str, torch.Tensor]:
         """One Adam step on a batch; returns the (detached) ``loss``,
-        ``autoLoss``, ``recogLoss`` and ``logp`` ``[B, T, C]``."""
+        ``autoLoss``, ``recogLoss`` (over the global batch under a mesh)
+        and ``logp`` ``[B, T, C]``."""
         loss, aux = self.loss(image, label, label_lengths, width)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        out = {"loss": loss.detach().clone(),
+               **{k: v.detach().clone() for k, v in aux.items()
+                  if k != "logp"}}
+        self._average([p.grad for p in self.model.parameters()
+                       if p.grad is not None] + list(out.values()))
         self.optimizer.step()
         self.scheduler.step()
         self.step += 1
-        return {"loss": loss.detach(),
-                **{k: v.detach() for k, v in aux.items()}}
+        return dict(out, logp=aux["logp"].detach())
 
     @torch.no_grad()
     def eval_step(self, image, label, label_lengths, width=None
@@ -134,7 +141,8 @@ class AutoTrainer(CheckpointedTrainer):
     def validate(self, batches: Iterable[Dict],
                  max_batches: Optional[int] = None) -> Dict[str, float]:
         """``val_autoLoss``, ``val_recogLoss`` and ``val_CER`` (greedy
-        decoding): each batch's mean, averaged over the batches."""
+        decoding): each batch's mean, averaged over the batches (every
+        rank's, under a mesh)."""
         totals = {"val_autoLoss": 0.0, "val_recogLoss": 0.0, "val_CER": 0.0}
         n = 0
         for batch in itertools.islice(batches, max_batches):
@@ -147,7 +155,7 @@ class AutoTrainer(CheckpointedTrainer):
             totals["val_recogLoss"] += float(out["val_recogLoss"])
             totals["val_CER"] += cer
             n += 1
-        return {k: v / max(n, 1) for k, v in totals.items()}
+        return self._global_means(totals, n)
 
     def _step_metrics(self, batch: Dict, log_step: bool) -> Dict:
         """The step's ``loss``, ``autoLoss`` and ``recogLoss``."""

@@ -52,6 +52,23 @@ state (:meth:`GanTrainer.state_dict`), resume and SIGINT.  Unlike the JAX
 loop, it builds its state from a seed alone (JAX consumes the first batch
 to build it), and a resumed run continues the text sampler where it was
 (JAX re-seeds it).
+
+Under a mesh (``use_mesh``, or ``train(..., mesh=, fsdp=)``; see
+``parallel/mesh.py``) each rank steps on its share of every image batch.
+Where JAX's one SPMD program makes every group gradient global, here each
+lesson averages its gradient groups over the ``data`` axis in one bucket
+(with its losses) before anything reads them: count's and disc's
+gradients, the no-step lesson's genRecog and genAdv groups before they are
+added to the saved ones, and the auto lesson's main, adversarial and
+reconRecog groups before ``balance_and_merge``.  The style bank takes every
+rank's styles in rank order (the bank of one process on the concatenated
+batch), and each rank draws the global batch's numbers from the shared
+generator and keeps its rows (``ops.rows``), so the ranks' states stay
+bit-equal.  As in JAX, the text lessons sample ``batch_size *
+a_batch_size / data`` texts a rank from the same seed (every rank the same
+texts), and validation's losses are global means while its CERs come from
+the rank's own rows (``model_best`` follows rank 0's).  Sample strips are
+rank 0's.
 """
 
 from __future__ import annotations
@@ -93,6 +110,9 @@ from handwriting_line_generation_tpu_torch.ops.ctc import (
 )
 from handwriting_line_generation_tpu_torch.ops.spacing import (
     counts_from_spaced, onehot,
+)
+from handwriting_line_generation_tpu_torch.parallel.mesh import (
+    Mesh, check_group_local, is_writer,
 )
 from handwriting_line_generation_tpu_torch.training.curriculum import \
     Curriculum
@@ -228,6 +248,17 @@ class GanTrainer(CheckpointedTrainer):
     def step(self) -> int:
         return self.state.step
 
+    def use_mesh(self, mesh: Optional[Mesh], fsdp: bool = False) -> None:
+        """As ``CheckpointedTrainer.use_mesh``; author groups must stay
+        whole on each rank, and the text lessons take the rank's share of
+        the batch."""
+        super().use_mesh(mesh, fsdp)
+        d = self.cfg.data
+        lines = d.batch_size * d.a_batch_size
+        if mesh is not None:
+            check_group_local(lines, d.a_batch_size, mesh.data)
+        self.text.batch_size = lines // (1 if mesh is None else mesh.data)
+
     # -- setup -----------------------------------------------------------
 
     def init_state(self, seed: int = 0, params: Optional[Mapping] = None,
@@ -260,7 +291,8 @@ class GanTrainer(CheckpointedTrainer):
         self.state = create_gan_state(
             c, self.model, seed + 1,
             need_sep_gen_opt=self.curriculum.need_sep_gen_opt,
-            need_sep_style_ex_opt=self.curriculum.need_sep_style_ex_opt)
+            need_sep_style_ex_opt=self.curriculum.need_sep_style_ex_opt,
+            shard=self._shard)
         return self.state
 
     @staticmethod
@@ -296,7 +328,8 @@ class GanTrainer(CheckpointedTrainer):
         aug = {k: self._tensor(v)
                for k, v in ((draws or {}).get("aug") or {}).items()}
         return apply_augmentation(self.cfg.data.augmentation, image, fg_mask,
-                                  self.state.generator, draws=aug)
+                                  self._rows(self.state.generator),
+                                  draws=aug)
 
     def _perceptual(self, image: torch.Tensor, recon: torch.Tensor
                     ) -> torch.Tensor:
@@ -325,12 +358,12 @@ class GanTrainer(CheckpointedTrainer):
         s = self.state
         return bank_sample(s.style_bank, s.bank_count, B, self.interp_low,
                            self.interp_high, self.cfg.model.packed_style_dim(),
-                           s.generator, (draws or {}).get("bank"))
+                           self._rows(s.generator), (draws or {}).get("bank"))
 
     def _generate(self, label, lens, style, spaced_len: int, draws: Draws):
         d = draws or {}
         return self.model.generate(label, lens, style, spaced_len=spaced_len,
-                                   generator=self.state.generator,
+                                   generator=self._rows(self.state.generator),
                                    normals=d.get("normals"),
                                    noise=d.get("noise"))
 
@@ -362,9 +395,11 @@ class GanTrainer(CheckpointedTrainer):
                                    - torch.where(mask, gt_counts, 0.0)) ** 2
                                   ).mean()
         grads = _grads(loss, s.params, None, retain_graph=False)
+        loss = loss.detach().clone()
+        self._average(grads + [loss])
         s.opt_main.step(grads)
         s.step += 1
-        return {"countLoss": loss.detach(), "grads": grads}
+        return {"countLoss": loss, "grads": grads}
 
     def step_gen_nostep(self, label, lens, spaced_len: int,
                         draws: Draws = None) -> Dict:
@@ -389,12 +424,13 @@ class GanTrainer(CheckpointedTrainer):
         for i, g in enumerate(recog_p):
             if g is not None:
                 recog_g[i] += g
+        losses = [recog_l.detach().clone(), adv_l.detach().clone()]
+        self._average(recog_g + adv_g + losses)
         torch._foreach_add_(s.saved_recog, recog_g)
         torch._foreach_add_(s.saved_adv, adv_g)
         s.have_saved = True
         s.step += 1
-        return {"genRecogLoss": recog_l.detach(),
-                "generatorLoss": adv_l.detach(),
+        return {"genRecogLoss": losses[0], "generatorLoss": losses[1],
                 "recog_g": recog_g, "adv_g": adv_g}
 
     def step_auto(self, image, label, lens, fg_mask, width, a_batch: int,
@@ -412,11 +448,12 @@ class GanTrainer(CheckpointedTrainer):
         fg_mask = fg_to_float(self._tensor(fg_mask))
         image, fg_mask, wscale = self._augment(image, fg_mask, draws)
         frames = self._frames(width, wscale, image.shape[2])
+        g = self._rows(s.generator)
         recon, aux = self.model.autoencode(
             image, label, lens, a_batch,
             spaced_label=self._tensor(spaced_label), frame_lengths=frames,
-            noise=d.get("noise"), generator=s.generator,
-            vae_generator=s.generator if vae else None,
+            noise=d.get("noise"), generator=g,
+            vae_generator=g if vae else None,
             vae_eps=self._tensor(d.get("vae")))
         r = recon.detach().requires_grad_(True)
         # main group: fg-masked L1 + perceptual
@@ -425,11 +462,11 @@ class GanTrainer(CheckpointedTrainer):
         else:
             auto = (r - image).abs().mean()
         main_l = self.w["auto"] * auto
-        logs = {"autoLoss": auto.detach()}
+        logs = {"autoLoss": auto.detach().clone()}
         if self.use_perceptual:
             perc = self._perceptual(image, r)
             main_l = main_l + self.w["perceptual"] * perc
-            logs["perceptualLoss"] = perc.detach()
+            logs["perceptualLoss"] = perc.detach().clone()
         ct_main, = torch.autograd.grad(main_l, r)
         adv_l = self.w["generator"] * gen_adv_loss(self.model.discriminate(
             r, **self._cond_style(_flat_style(aux["style"]))))
@@ -443,18 +480,22 @@ class GanTrainer(CheckpointedTrainer):
             # the KL is a second output of the same forward: its gradient
             # reaches the style extractor directly, not through the recon
             kl = vae_kl(*aux["style"])
-            logs["klLoss"] = kl.detach()
+            logs["klLoss"] = kl.detach().clone()
             main_g = _grads([recon, kl], s.params,
                             [ct_main, torch.full_like(kl, self.w["styleReg"])],
                             retain_graph=True)
         else:
             main_g = _grads(recon, s.params, ct_main, retain_graph=True)
+        logs.update(autoGenLoss=adv_l.detach().clone(),
+                    reconRecogLoss=recog_l.detach().clone())
         if self.balance:
             adv_g = _grads(recon, s.params, ct_adv, retain_graph=True)
             recog_g = _grads(recon, s.params, ct_recog, retain_graph=False)
             for i, g in enumerate(recog_p):
                 if g is not None:
                     recog_g[i] += g
+            # the groups balanced are the global ones
+            self._average(main_g + adv_g + recog_g + list(logs.values()))
             mults = (multipliers_at(c.trainer.balance_var_x, bal_stage)
                      + [1.0] * 4)[:4]
             groups = [s.saved_recog, s.saved_adv, adv_g, recog_g]
@@ -469,18 +510,19 @@ class GanTrainer(CheckpointedTrainer):
             for i, g in enumerate(recog_p):
                 if g is not None:
                     both_g[i] += g
+            self._average(main_g + both_g + list(logs.values()))
             merged = [m + b + ra + rr for m, b, ra, rr in
                       zip(main_g, both_g, s.saved_recog, s.saved_adv)]
         opt = {"main": s.opt_main, "gen_only": s.opt_gen_only,
                "style_ex": s.opt_style_ex}[opt_kind]
-        out = {**logs, "autoGenLoss": adv_l.detach(),
-               "reconRecogLoss": recog_l.detach(),
-               "pred_am": aux["pred"].argmax(-1),
+        out = {**logs, "pred_am": aux["pred"].argmax(-1),
                "main_g": main_g, "merged": merged}
         if self.balance:
             out.update(adv_g=adv_g, recog_g=recog_g)
         opt.step(merged)
-        styles = pack_style(aux["style"])[::a_batch]
+        styles = pack_style(aux["style"])[::a_batch].detach()
+        if self.mesh is not None:
+            styles = self.mesh.gather_rows(styles)
         s.style_bank, s.bank_count = bank_push(s.style_bank, s.bank_count,
                                                styles)
         s.clear_saved()
@@ -511,9 +553,11 @@ class GanTrainer(CheckpointedTrainer):
         fake_s = self.model.discriminate(fake, **self._cond_style(style_gen))
         loss = self.w["discriminator"] * disc_hinge_loss(real_s, fake_s)
         grads = _grads(loss, s.params, None, retain_graph=False)
+        loss = loss.detach().clone()
+        self._average(grads + [loss])
         s.opt_disc.step(grads)
         s.step += 1
-        return {"discriminatorLoss": loss.detach(), "grads": grads}
+        return {"discriminatorLoss": loss, "grads": grads}
 
     # -- lessons -------------------------------------------------------------
 
@@ -537,7 +581,7 @@ class GanTrainer(CheckpointedTrainer):
             return keep(self.step_gen_nostep(tb["label"],
                                              tb["label_lengths"],
                                              self.gen_spaced_len, draws))
-        batch = next(data_iter)
+        batch = self._common(next(data_iter))
         image = batch["image"]
         if (c.data.u8_transfer and isinstance(image, np.ndarray)
                 and image.dtype != np.uint8):
@@ -626,7 +670,7 @@ class GanTrainer(CheckpointedTrainer):
         noise = (draws or {}).get("noise")
         recon, aux = self.model.autoencode(
             image, label, lens, a_batch, frame_lengths=frames, noise=noise,
-            generator=(torch.Generator(self.device).manual_seed(0)
+            generator=(self._rows(torch.Generator(self.device).manual_seed(0))
                        if noise is None else None))
         return image, recon, aux, frames, label, lens
 
@@ -636,7 +680,7 @@ class GanTrainer(CheckpointedTrainer):
         Returns ``(image, aux, style)``."""
         label, lens = self._tensor(label), self._tensor(lens)
         s, d = self.state, draws or {}
-        g = torch.Generator(self.device).manual_seed(seed)
+        g = self._rows(torch.Generator(self.device).manual_seed(seed))
         style = bank_sample(s.style_bank, s.bank_count, label.shape[0],
                             self.interp_low, self.interp_high,
                             self.cfg.model.packed_style_dim(), g,
@@ -710,8 +754,13 @@ class GanTrainer(CheckpointedTrainer):
         reconstructions and ``val_gen_CER`` on lines generated from their
         text (batch ``i``'s probe seeded ``1000 + i``).  ``params``: weights
         to validate in place of the model's (the SWA average); ``draws``:
-        per batch, the ``(eval_step, eval_gen_step)`` draws."""
-        totals: Dict[str, float] = {}
+        per batch, the ``(eval_step, eval_gen_step)`` draws.  Under a mesh
+        the losses are means over every rank's batches, the CERs this
+        rank's."""
+        # the same keys on every rank, one without validation rows too
+        totals = dict.fromkeys(
+            ["val_autoLoss", "val_countLoss"]
+            + ["val_perceptualLoss"] * self.use_perceptual, 0.0)
         gts: List[str] = []
         preds: List[str] = []
         rpreds: List[str] = []
@@ -732,9 +781,9 @@ class GanTrainer(CheckpointedTrainer):
                 rpreds.extend(decode(out.pop("recon_am")))
                 gpreds.extend(decode(gen["gen_am"]))
                 for k, v in out.items():
-                    totals[k] = totals.get(k, 0.0) + float(v)
+                    totals[k] += float(v)
                 n += 1
-        res = {k: v / max(n, 1) for k, v in totals.items()}
+        res = self._global_means(totals, n)
         if gts:
             res["val_CER"], res["val_WER"] = batch_cer_wer(gts, preds)
             res["val_recon_CER"], _ = batch_cer_wer(gts, rpreds)
@@ -848,7 +897,10 @@ class GanTrainer(CheckpointedTrainer):
         (generated from its text) and ``iter<N>_recon.png`` (each original
         above its reconstruction), under ``trainer.print_dir`` or
         ``<run_dir>/samples``, and the discriminator's mean scores of the
-        real and the generated lines appended to ``disc_scores.txt``."""
+        real and the generated lines appended to ``disc_scores.txt``; rank
+        0's alone under a mesh."""
+        if not is_writer():
+            return
         out_dir = self.cfg.trainer.print_dir or os.path.join(run_dir,
                                                              "samples")
         os.makedirs(out_dir, exist_ok=True)

@@ -13,8 +13,13 @@ each step; this one draws its augmentation from one device
 :meth:`HWRTrainer.train` runs the loop of ``training/loop.py``: in-loop
 validation, checkpoints, resume and SIGINT.  The training CLI
 (``handwriting_line_generation_tpu_torch.train``) feeds it
-``make_batcher``'s batches through a ``Prefetcher``; multi-process
-training is not ported yet.
+``make_batcher``'s batches through a ``Prefetcher``.  Under a mesh
+(``use_mesh``, or ``train(..., mesh=, fsdp=)``) each rank steps on its
+share of the batch, its augmentation the rows of the global batch's draws
+(``ops.rows``), the gradients and the loss averaged over the ``data`` axis
+in one bucket before Adam (sharded over ``model`` with ``fsdp``); the CER
+of a log step decodes the rank's own rows, and validation's means are
+taken over every rank's batches.
 """
 
 from __future__ import annotations
@@ -73,7 +78,8 @@ class HWRTrainer(CheckpointedTrainer):
             model.load_state_dict(convert_hwr_params(params))
         self.model = model.to(self.device)
         self.optimizer, self.scheduler = make_optimizer(
-            self.model.parameters(), c.optimizer, c.trainer.iterations)
+            self.model.parameters(), c.optimizer, c.trainer.iterations,
+            self._shard)
         self.generator = torch.Generator(self.device).manual_seed(seed + 1)
         self.step = 0
 
@@ -92,7 +98,7 @@ class HWRTrainer(CheckpointedTrainer):
         self.model.train()
         img, _, wscale = apply_augmentation(
             self.augmentation, dequantize_image(image, width), None,
-            self.generator)
+            self._rows(self.generator))
         logp = self.model(img)
         # confine emissions to each sample's true (stretched) ink width
         frames = torch.ceil(width.float() * wscale / 4.0).to(torch.int32)
@@ -104,14 +110,18 @@ class HWRTrainer(CheckpointedTrainer):
                    label_lengths: ArrayLike, width: ArrayLike
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One Adam step on a batch; returns the (detached) mean CTC loss
-        and the masked log-probs ``[B, T, C]``."""
+        (over the global batch under a mesh) and the masked log-probs
+        ``[B, T, C]``."""
         loss, logp = self.loss(image, label, label_lengths, width)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        loss = loss.detach().clone()
+        self._average([p.grad for p in self.model.parameters()
+                       if p.grad is not None] + [loss])
         self.optimizer.step()
         self.scheduler.step()
         self.step += 1
-        return loss.detach(), logp.detach()
+        return loss, logp.detach()
 
     @torch.no_grad()
     def eval_step(self, image: ArrayLike, label: ArrayLike,
@@ -132,7 +142,8 @@ class HWRTrainer(CheckpointedTrainer):
 
     def validate(self, batches: Iterable[Dict],
                  max_batches: Optional[int] = None) -> Dict[str, float]:
-        """Mean loss, CER and WER over ``batches``."""
+        """Mean loss, CER and WER over ``batches`` (over every rank's
+        batches under a mesh)."""
         totals = {"val_loss": 0.0, "val_CER": 0.0, "val_WER": 0.0}
         n = 0
         for batch in itertools.islice(batches, max_batches):
@@ -146,7 +157,7 @@ class HWRTrainer(CheckpointedTrainer):
             totals["val_CER"] += cer
             totals["val_WER"] += wer
             n += 1
-        return {k: v / max(n, 1) for k, v in totals.items()}
+        return self._global_means(totals, n)
 
     def _step_metrics(self, batch: Dict, log_step: bool) -> Dict:
         """The step's loss, and on a log step the CER/WER of its batch."""

@@ -12,6 +12,14 @@ autoencoder), saves on the config's ``save_step``/``save_step_minor``, and
 on SIGINT finishes the step, writes ``checkpoint-latest`` with
 ``interrupted: true`` and leaves the loop.
 
+Under a mesh (``train(..., mesh=, fsdp=)``, see ``parallel/mesh.py``) every
+rank runs the loop on its share of each batch; the steps average their
+gradients over the mesh's ``data`` axis, so the ranks' states stay equal.
+Rank 0 alone writes the run directory (checkpoints, ``train_log.json``,
+samples) and a barrier follows each full checkpoint; the ranks agree on a
+SIGINT each step (any rank's stops all at the same step) and wait for rank
+0 at the end.
+
 A step takes the batch *iterator*: each trainer pulls what its step needs
 (a GAN lesson on generated text pulls none).  The hooks below are how the
 GAN adds its per-log CER, its SWA validation, SWA steps, sample dumps and
@@ -28,11 +36,14 @@ from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from handwriting_line_generation_tpu_torch.data.datasets import pad_batch
 from handwriting_line_generation_tpu_torch.ops.augment import \
     quantize_image_u8
-from handwriting_line_generation_tpu_torch.utils.checkpoint import (
-    CheckpointManager, save_checkpoint,
+from handwriting_line_generation_tpu_torch.parallel.mesh import (
+    Mesh, barrier, end_of_train_sync,
 )
+from handwriting_line_generation_tpu_torch.utils.checkpoint import \
+    CheckpointManager
 from handwriting_line_generation_tpu_torch.utils.train_log import TrainLog
 
 
@@ -55,6 +66,59 @@ class CheckpointedTrainer:
     model: Optional[torch.nn.Module] = None
     VAL_BATCHES = 10                  # validation batches, as in JAX
     LOG_AT_VALIDATION = False         # write train_log.json at each one
+    mesh: Optional[Mesh] = None       # data-parallel grid (use_mesh)
+    fsdp = False                      # Adam state over the mesh's model axis
+
+    def use_mesh(self, mesh: Optional[Mesh], fsdp: bool = False) -> None:
+        """Train on this rank's share of each batch of ``mesh``'s ``data``
+        axis, the gradients averaged over it, and with ``fsdp`` the Adam
+        state sharded over its ``model`` axis.  Call before the state is
+        built."""
+        if self.model is not None:
+            raise ValueError("use_mesh must come before init_state")
+        self.mesh, self.fsdp = mesh, fsdp
+
+    @property
+    def _shard(self) -> Optional[Mesh]:
+        """The mesh that shards the optimizers' state, if any."""
+        m = self.mesh
+        return m if self.fsdp and m is not None and m.model > 1 else None
+
+    def _rows(self, generator):
+        """``generator`` drawing this rank's rows of the global batch."""
+        return generator if self.mesh is None else self.mesh.rows(generator)
+
+    def _common(self, batch: Dict) -> Dict:
+        """``batch`` padded to the widest image and the longest labels any
+        rank holds at this step (the batchers bucket each rank's lines on
+        their own), so the ranks step on the rows of one global batch and
+        draw equal shapes."""
+        m = self.mesh
+        if m is None or m.data == 1:
+            return batch
+        sp = batch.get("spaced_label")
+        return pad_batch(batch, *m.max_ints(
+            [batch["image"].shape[2], batch["label"].shape[1],
+             0 if sp is None else sp.shape[1]]))
+
+    def _average(self, tensors) -> None:
+        """Average ``tensors`` over the mesh's ``data`` axis, in place."""
+        if self.mesh is not None:
+            self.mesh.all_reduce_mean(tensors)
+
+    def _global_means(self, totals: Dict[str, float], n: int
+                      ) -> Dict[str, float]:
+        """``totals / n``, the sums and the batch count taken over the
+        mesh's ``data`` axis first (ranks may hold different numbers of
+        validation batches), so every rank gets the global means."""
+        if self.mesh is None or self.mesh.data == 1:
+            return {k: v / max(n, 1) for k, v in totals.items()}
+        keys = sorted(totals)
+        t = torch.tensor([totals[k] for k in keys] + [float(n)],
+                         dtype=torch.float64, device=self.device)
+        self.mesh.all_reduce_mean([t])
+        t = t.tolist()
+        return {k: v / max(t[-1], 1e-30) for k, v in zip(keys, t[:-1])}
 
     def state_dict(self) -> Dict[str, Any]:
         """Everything a resumed run needs to continue exactly."""
@@ -84,10 +148,12 @@ class CheckpointedTrainer:
                     log_step: bool) -> Optional[Dict]:
         """Step ``iteration`` (1-based), pulling its batch from
         ``batches``; None when they have run out.  Float images are
-        quantized to u8 first when the config's ``u8_transfer`` says so."""
+        quantized to u8 first when the config's ``u8_transfer`` says so;
+        under a mesh, padded to the ranks' common shapes first."""
         batch = next(batches, None)
         if batch is None:
             return None
+        batch = self._common(batch)
         image = batch["image"]
         if (self.cfg.data.u8_transfer and isinstance(image, np.ndarray)
                 and image.dtype != np.uint8):
@@ -122,7 +188,8 @@ class CheckpointedTrainer:
               on_log: Optional[Callable[[Dict], None]] = None,
               val_every: Optional[int] = None, valid: Any = None,
               val_batches: Optional[int] = None,
-              resume: bool = True) -> TrainLog:
+              resume: bool = True, mesh: Optional[Mesh] = None,
+              fsdp: bool = False) -> TrainLog:
         """Steps ``self.step + 1 .. iterations`` over ``batches`` (stops
         early when they run out), logging each step's metrics, averaged over
         ``log_every`` steps; every ``val_every`` steps (the config's
@@ -130,8 +197,12 @@ class CheckpointedTrainer:
         (``VAL_BATCHES`` by default) of ``valid`` (a batcher or a list of
         batch dicts), ``model_best`` kept by :meth:`monitor`.  A resumed run
         continues from ``checkpoint-latest``'s step, and ``batches`` should
-        continue from there too."""
+        continue from there too.  ``mesh``/``fsdp``: as :meth:`use_mesh`;
+        under a mesh ``batches`` holds this rank's shares and must not run
+        out (``forever`` does not)."""
         c = self.cfg
+        if mesh is not None:
+            self.use_mesh(mesh, fsdp)
         if self.model is None:
             self.init_state(c.trainer.seed)
         iterations = iterations or c.trainer.iterations
@@ -184,18 +255,16 @@ class CheckpointedTrainer:
                                 best=lambda: {"model":
                                               self.model.state_dict()},
                                 extra=side)
-                if stop.is_set():
-                    save = dict(meta, **side_meta, iteration=i,
-                                interrupted=True)
-                    save_checkpoint(ckpt.directory, "checkpoint-latest",
-                                    self.state_dict(), save)
-                    for name, obj in side.items():
-                        save_checkpoint(ckpt.directory,
-                                        f"checkpoint-latest-{name}", obj,
-                                        save)
+                if (stop.is_set() if self.mesh is None
+                        else self.mesh.any(stop.is_set())):
+                    ckpt.save("checkpoint-latest", self.state_dict(),
+                              dict(meta, **side_meta, iteration=i,
+                                   interrupted=True), side)
+                    barrier()
                     break
         finally:
             if main:
                 signal.signal(signal.SIGINT, old)
             log.save(log_path)
+        end_of_train_sync()
         return log

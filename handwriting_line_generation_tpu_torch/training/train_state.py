@@ -7,6 +7,9 @@ Counterpart of ``handwriting_line_generation_tpu/training/train_state.py``:
   schedule; :func:`make_optimizer` pairs one with ``torch.optim.Adam``
   through ``LambdaLR``.  optax's Adam and torch's compute the same update
   (bias-corrected moments, ``eps`` added to the square root).
+* :class:`ShardedAdam` — that Adam with its state sharded over a mesh's
+  ``model`` axis (``--fsdp``); every optimizer here takes ``shard=`` (the
+  mesh) to build one.
 * The GAN's parameter partitions (main / disc / frozen, by name) and its
   two optimizers, :class:`PartitionAdam`: an element-value
   clip at ``±grad_clip``, then Adam over the optimizer's own partitions
@@ -35,6 +38,10 @@ import torch
 from torch import nn
 
 from handwriting_line_generation_tpu_torch.config import Config, OptimConfig
+from handwriting_line_generation_tpu_torch.ops import rows
+from handwriting_line_generation_tpu_torch.parallel.mesh import (
+    all_gather, fsdp_axis,
+)
 
 
 def make_lr_schedule(kind, base_lr: float, total_iters: int,
@@ -85,19 +92,134 @@ def make_lr_schedule(kind, base_lr: float, total_iters: int,
     raise ValueError(f"unknown lr schedule {kind!r}")
 
 
+class ShardedAdam(torch.optim.Adam):
+    """``torch.optim.Adam`` over ``params`` (tensors or param-group dicts)
+    with its moments sharded over ``shard``'s ``model`` axis.
+
+    Each float tensor that :func:`~handwriting_line_generation_tpu_torch.
+    parallel.mesh.fsdp_axis` shards is stood in for by this rank's slice of
+    it along that axis; Adam keeps state for, and updates, the slice, and
+    :meth:`step` gathers the updated slices back into the full tensors
+    (one flat-bucket ``all_gather``).  The rest are Adam's own.  Adam is
+    elementwise, so given the same gradients every element comes out as the
+    replicated Adam's, bit for bit.  :meth:`state_dict` gathers the moments
+    whole, in ``torch.optim.Adam``'s layout over ``params``, and
+    :meth:`load_state_dict` takes that layout (from any grid) and keeps this
+    rank's slices.  ``step`` and ``state_dict`` are collective over the
+    ``model`` axis."""
+
+    def __init__(self, params, shard, **adam):
+        groups = list(params)
+        if groups and not isinstance(groups[0], dict):
+            groups = [{"params": groups}]
+        self.shard = shard
+        self._full: List[torch.Tensor] = []
+        self._axis: List[Optional[int]] = []
+        self._slices: List[torch.Tensor] = []
+        standins = []
+        for g in groups:
+            group = dict(g, params=[])
+            for p in g["params"]:
+                ax = fsdp_axis(p.shape, shard.model, p.is_floating_point())
+                s = p if ax is None else \
+                    self._slice(p.detach(), ax).clone()
+                self._full.append(p)
+                self._axis.append(ax)
+                self._slices.append(s)
+                group["params"].append(s)
+            standins.append(group)
+        super().__init__(standins, **adam)
+
+    def _slice(self, t: torch.Tensor, ax: int) -> torch.Tensor:
+        n = t.shape[ax] // self.shard.model
+        return t.narrow(ax, self.shard.model_index * n, n)
+
+    def _sharded(self) -> List[int]:
+        return [i for i, ax in enumerate(self._axis) if ax is not None]
+
+    def _gather(self, parts: List[torch.Tensor], index: List[int]
+                ) -> List[torch.Tensor]:
+        """The whole tensors of this rank's slices ``parts`` (of
+        ``self._full[i]`` for ``i`` in ``index``), gathered over the
+        ``model`` axis in one bucket."""
+        if not parts:
+            return []
+        flat = torch.cat([t.reshape(-1) for t in parts])
+        ranks = all_gather(flat, self.shard.model_group, self.shard.staging)
+        out, off = [], 0
+        for t, i in zip(parts, index):
+            n = t.numel()
+            out.append(torch.cat([r[off:off + n].view(t.shape)
+                                  for r in ranks], dim=self._axis[i]))
+            off += n
+        return out
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        """Adam on this rank's slices (fresh from the full tensors, whose
+        ``.grad`` is read), then the full tensors gathered back."""
+        index = self._sharded()
+        for i in index:
+            p, s, ax = self._full[i], self._slices[i], self._axis[i]
+            s.copy_(self._slice(p, ax))
+            s.grad = (None if p.grad is None
+                      else self._slice(p.grad, ax).contiguous())
+        super().step()
+        whole = self._gather([self._slices[i] for i in index], index)
+        for i, t in zip(index, whole):
+            self._full[i].copy_(t)
+            self._slices[i].grad = None
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        super().zero_grad(set_to_none)
+        for p in self._full:
+            p.grad = None
+
+    def state_dict(self) -> Dict:
+        sd = super().state_dict()
+        index = [i for i in self._sharded() if i in sd["state"]]
+        keys = ("exp_avg", "exp_avg_sq")
+        parts = [sd["state"][i][k] for i in index for k in keys]
+        whole = iter(self._gather(parts, [i for i in index for _ in keys]))
+        for i in index:
+            sd["state"][i] = dict(sd["state"][i],
+                                  **{k: next(whole) for k in keys})
+        return sd
+
+    def load_state_dict(self, state_dict: Dict) -> None:
+        state = dict(state_dict["state"])
+        for i in self._sharded():
+            if i in state:
+                state[i] = {k: (self._slice(v, self._axis[i]).clone()
+                                if k.startswith("exp_avg") else v)
+                            for k, v in state[i].items()}
+        super().load_state_dict(dict(state_dict, state=state))
+
+
+def _adam(params, cfg: OptimConfig, shard=None, lr: Optional[float] = None
+          ) -> torch.optim.Adam:
+    """Adam with ``cfg.betas`` and eps 1e-8; a :class:`ShardedAdam` over
+    ``shard``'s ``model`` axis when a mesh is given."""
+    kw = dict(lr=cfg.lr if lr is None else lr, betas=tuple(cfg.betas),
+              eps=1e-8)
+    if shard is None:
+        return torch.optim.Adam(params, **kw)
+    return ShardedAdam(params, shard, **kw)
+
+
 def make_optimizer(params: Iterable[torch.nn.Parameter], cfg: OptimConfig,
-                   total_iters: int
+                   total_iters: int, shard=None
                    ) -> Tuple[torch.optim.Adam, torch.optim.lr_scheduler.LambdaLR]:
     """Adam with ``cfg.betas`` and eps 1e-8, its learning rate following
     :func:`make_lr_schedule` (call the scheduler's ``step`` after each
-    optimizer step)."""
+    optimizer step); its state sharded over ``shard``'s ``model`` axis
+    when a mesh is given."""
     if cfg.kind != "adam" or cfg.weight_decay:
         raise NotImplementedError(f"optimizer {cfg.kind!r} with weight decay "
                                   f"{cfg.weight_decay} is not ported")
     sched = make_lr_schedule(cfg.lr_schedule, cfg.lr, total_iters,
                              cfg.warmup_steps, cfg.cycle_size)
-    opt = torch.optim.Adam(params, lr=cfg.lr, betas=tuple(cfg.betas),
-                           eps=1e-8)
+    opt = _adam(params, cfg, shard)
     return opt, torch.optim.lr_scheduler.LambdaLR(
         opt, lambda step: sched(step) / cfg.lr)
 
@@ -131,11 +253,12 @@ class PartitionAdam:
     optimizer over a model's parameter list: Adam, at ``cfg.lr`` times the
     partition's entry of ``scales``, steps the parameters whose label is in
     ``scales``; the rest get no update.  :meth:`step` takes the gradients of
-    every parameter (None counts as zeros)."""
+    every parameter (None counts as zeros).  ``shard``: a mesh whose
+    ``model`` axis shards the state (:class:`ShardedAdam`)."""
 
     def __init__(self, params: Sequence[nn.Parameter], labels: Sequence[str],
                  scales: Dict[str, float], cfg: OptimConfig,
-                 grad_clip: float, total_iters: int):
+                 grad_clip: float, total_iters: int, shard=None):
         if cfg.kind != "adam" or cfg.weight_decay:
             raise NotImplementedError(f"optimizer {cfg.kind!r} with weight "
                                       f"decay {cfg.weight_decay} is not "
@@ -146,9 +269,8 @@ class PartitionAdam:
         groups = [{"params": [self.params[i] for i in self.index
                               if labels[i] == part], "lr": cfg.lr * scale}
                   for part, scale in scales.items()]
-        self.optimizer = torch.optim.Adam(
-            [g for g in groups if g["params"]], lr=cfg.lr,
-            betas=tuple(cfg.betas), eps=1e-8)
+        self.optimizer = _adam([g for g in groups if g["params"]], cfg,
+                               shard)
         sched = make_lr_schedule(cfg.lr_schedule, cfg.lr, total_iters,
                                  cfg.warmup_steps, cfg.cycle_size)
         self.scheduler = torch.optim.lr_scheduler.LambdaLR(
@@ -178,20 +300,20 @@ class PartitionAdam:
 
 def make_optimizers(params: Sequence[nn.Parameter], labels: Sequence[str],
                     opt_cfg: OptimConfig, disc_cfg: OptimConfig,
-                    grad_clip: float = 2.0, total_iters: int = 175_000
-                    ) -> Tuple[PartitionAdam, PartitionAdam]:
+                    grad_clip: float = 2.0, total_iters: int = 175_000,
+                    shard=None) -> Tuple[PartitionAdam, PartitionAdam]:
     """(main, disc): main steps ``main``, disc steps ``disc``; ``frozen``
     is never stepped."""
     main = PartitionAdam(params, labels, {"main": 1.0}, opt_cfg, grad_clip,
-                         total_iters)
+                         total_iters, shard)
     disc = PartitionAdam(params, labels, {"disc": 1.0}, disc_cfg, grad_clip,
-                         total_iters)
+                         total_iters, shard)
     return main, disc
 
 
 def make_sep_optimizers(params: Sequence[nn.Parameter], names: Sequence[str],
                         opt_cfg: OptimConfig, grad_clip: float = 2.0,
-                        total_iters: int = 175_000
+                        total_iters: int = 175_000, shard=None
                         ) -> Tuple[PartitionAdam, PartitionAdam]:
     """(generator-only, style-extractor-only) optimizers for curricula with
     ``auto-style`` / ``style-ex-only`` lessons, at a constant rate (the JAX
@@ -203,7 +325,7 @@ def make_sep_optimizers(params: Sequence[nn.Parameter], names: Sequence[str],
     def only(prefix):
         labels = ["on" if prefix in n else "off" for n in names]
         return PartitionAdam(params, labels, {"on": 1.0}, const, grad_clip,
-                             total_iters)
+                             total_iters, shard)
     return only("generator"), only("style_extractor")
 
 
@@ -296,12 +418,11 @@ def bank_sample(bank: torch.Tensor, count: int, batch_size: int,
     dev = bank.device
     if draws is None:
         limit = min(max(count, 1), bank.shape[0])
-        draws = (torch.randint(0, limit, (batch_size, 2),
-                               generator=generator, device=dev),
-                 low + (high - low) * torch.rand(
-                     (batch_size, 1), generator=generator, device=dev),
-                 torch.randn((batch_size, style_dim), generator=generator,
-                             device=dev))
+        draws = (rows.randint(0, limit, (batch_size, 2), generator,
+                              device=dev),
+                 low + (high - low) * rows.rand((batch_size, 1), generator,
+                                                device=dev),
+                 rows.randn((batch_size, style_dim), generator, device=dev))
     idx, mix, normal = (torch.as_tensor(d, device=dev) for d in draws)
     if count == 0:
         return normal.float()
@@ -339,9 +460,11 @@ class GanTrainState:
 
 def create_gan_state(cfg: Config, model: nn.Module, seed: int,
                      need_sep_gen_opt: bool = False,
-                     need_sep_style_ex_opt: bool = False) -> GanTrainState:
+                     need_sep_style_ex_opt: bool = False,
+                     shard=None) -> GanTrainState:
     """Partitions, both optimizers (and the separate ones a curriculum asks
-    for), zeroed saved groups, an empty style bank on the model's device
+    for; their state sharded over ``shard``'s ``model`` axis when a mesh is
+    given), zeroed saved groups, an empty style bank on the model's device
     and a generator there seeded with ``seed``."""
     names, params = zip(*model.named_parameters())
     names, params = list(names), list(params)
@@ -349,12 +472,12 @@ def create_gan_state(cfg: Config, model: nn.Module, seed: int,
     t = cfg.trainer
     main, disc = make_optimizers(params, labels, cfg.optimizer,
                                  cfg.optimizer_discriminator, t.grad_clip,
-                                 t.iterations)
+                                 t.iterations, shard)
     gen_only = style_ex = None
     if need_sep_gen_opt or need_sep_style_ex_opt:
         gen_only, style_ex = make_sep_optimizers(params, names,
                                                  cfg.optimizer, t.grad_clip,
-                                                 t.iterations)
+                                                 t.iterations, shard)
     dev = params[0].device
     zeros = lambda: [torch.zeros_like(p) for p in params]
     return GanTrainState(

@@ -13,9 +13,17 @@ objects (the GAN's SWA weights) go beside each as ``<name>-<key>``.
 :func:`extract_subtree` takes one submodule's entries out of a state_dict
 by key prefix (``encoder`` out of an autoencoder's model), the role the
 JAX package's ``extract_subtree`` plays on nested param dicts.  JAX
-``.msgpack`` checkpoints are not read here.  Not ported: the archive mirror
-directory and the multi-process single-writer rule (the port trains in one
-process).
+``.msgpack`` checkpoints are not read here.
+
+Multi-process runs: only rank 0 writes (:func:`save_checkpoint` does
+nothing elsewhere), every rank builds the checkpoint (a sharded Adam
+gathers its state whole, so a checkpoint has one layout whatever the grid
+that wrote it, and resumes on any), and :meth:`CheckpointManager.maybe_save`
+ends each save of a full checkpoint with a barrier, so no rank runs ahead
+of a half-written ``checkpoint-latest``.  Every file a
+:class:`CheckpointManager` writes is mirrored into the directory of
+``INTERACTIVE_SESSION_ARCHIVE`` when that is set (the reference's archive
+of interactive sessions).
 """
 
 from __future__ import annotations
@@ -26,6 +34,10 @@ import os
 from typing import Any, Callable, Dict, Optional
 
 import torch
+
+from handwriting_line_generation_tpu_torch.parallel.mesh import (
+    barrier, is_writer,
+)
 
 # train.py of the reference refuses to start a fresh run in a directory
 # that already holds checkpoints; resume instead
@@ -41,9 +53,13 @@ def save_checkpoint(directory: str, name: str, obj: Any,
                     meta: Optional[Dict] = None) -> str:
     """``torch.save`` ``obj`` to ``<directory>/<name>.pt`` (and ``meta`` to
     ``<name>.json``), each through a temporary file and an atomic replace,
-    so a reader never sees half a checkpoint."""
-    os.makedirs(directory, exist_ok=True)
+    so a reader never sees half a checkpoint.  Only the writing rank
+    (:func:`~handwriting_line_generation_tpu_torch.parallel.mesh.is_writer`)
+    writes; the path is returned on every rank."""
     path = _path(directory, name)
+    if not is_writer():
+        return path
+    os.makedirs(directory, exist_ok=True)
     torch.save(obj, path + ".tmp")
     os.replace(path + ".tmp", path)
     if meta is not None:
@@ -87,11 +103,15 @@ class CheckpointManager:
     """The save_step / save_step_minor / best-model policy of a run
     directory.  ``best`` starts from ``model_best.json``'s monitored value,
     so a resumed run's first validation does not overwrite a better
-    ``model_best`` from before the restart."""
+    ``model_best`` from before the restart.  When
+    ``INTERACTIVE_SESSION_ARCHIVE`` is set, every file saved here is saved
+    in that directory too."""
 
     def __init__(self, directory: str, save_step: int = 25000,
                  save_step_minor: int = 250):
         self.directory = directory
+        self.archive_dir = (os.environ.get("INTERACTIVE_SESSION_ARCHIVE")
+                            or None)
         self.save_step = save_step
         self.save_step_minor = save_step_minor
         self.best = float("inf")
@@ -104,6 +124,17 @@ class CheckpointManager:
             except (ValueError, OSError):
                 pass
 
+    def save(self, name: str, obj: Any, meta: Dict,
+             extra: Optional[Dict[str, Any]] = None) -> None:
+        """``obj`` as ``name`` in the run directory and the archive, and
+        each of ``extra`` (the GAN's ``{"swa": ...}``) beside it as
+        ``<name>-<key>``; rank 0 alone writes."""
+        for d in [self.directory] + ([self.archive_dir] if self.archive_dir
+                                     else []):
+            save_checkpoint(d, name, obj, meta)
+            for key, side in (extra or {}).items():
+                save_checkpoint(d, f"{name}-{key}", side, meta)
+
     def maybe_save(self, iteration: int, state: Callable[[], Any],
                    meta: Dict, monitor_value: Optional[float] = None,
                    best: Optional[Callable[[], Any]] = None,
@@ -111,23 +142,34 @@ class CheckpointManager:
         """Save what is due at ``iteration``.  ``state`` and ``best`` are
         called only when a save needs them: ``state()`` is the full
         checkpoint, ``best()`` what ``model_best`` holds (``state()`` when
-        not given).  ``extra`` (the GAN's ``{"swa": ...}``): objects saved
-        beside every checkpoint written here as ``<name>-<key>``."""
+        not given).  ``extra``: as :meth:`save`, beside every checkpoint
+        written here.
+
+        Every rank calls this at every iteration.  The numbered and latest
+        checkpoints fall due at the same iterations on every rank:
+        ``state()`` runs on all of them (it may gather sharded state), rank
+        0 writes, and all wait for it.  ``model_best`` follows the writer's
+        ``monitor_value``, which the ranks need not share (a rank's
+        validation rows may be none), so it is written by the writer alone,
+        with no barrier (no rank reads it during the run), and ``best()``
+        must not be collective."""
         meta = dict(meta, iteration=iteration)
-
-        def save(name: str, obj: Any, meta: Dict) -> None:
-            save_checkpoint(self.directory, name, obj, meta)
-            for key, side in (extra or {}).items():
-                save_checkpoint(self.directory, f"{name}-{key}", side, meta)
-
+        due = False
         if self.save_step and iteration % self.save_step == 0:
-            save(f"checkpoint-iteration{iteration}", state(), meta)
+            self.save(f"checkpoint-iteration{iteration}", state(), meta,
+                      extra)
+            due = True
         if self.save_step_minor and iteration % self.save_step_minor == 0:
-            save("checkpoint-latest", state(), meta)
+            self.save("checkpoint-latest", state(), meta, extra)
+            due = True
         if monitor_value is not None and monitor_value < self.best:
             self.best = monitor_value
-            save("model_best", (best or state)(),
-                 dict(meta, monitor_value=float(monitor_value)))
+            if is_writer():
+                self.save("model_best", (best or state)(),
+                          dict(meta, monitor_value=float(monitor_value)),
+                          extra)
+        if due:
+            barrier()
 
     def latest(self) -> Any:
         return load_checkpoint(self.directory, "checkpoint-latest")

@@ -1,6 +1,7 @@
 """Training log: a copy of ``handwriting_line_generation_tpu/utils/
 train_log.py``'s ``TrainLog``.  Periodic entries keyed by iteration,
 rolling averages over a window, ``sec_per_iter``, JSON / CSV / plot export.
+In a multi-process run only rank 0 writes the JSON.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from collections import defaultdict, deque
 from typing import Dict, List, Optional
 
 import torch
+
+from handwriting_line_generation_tpu_torch.parallel.mesh import is_writer
 
 
 class TrainLog:
@@ -49,7 +52,9 @@ class TrainLog:
         return entry
 
     def save(self, path: str) -> None:
-        """Atomic JSON write of the entries."""
+        """Atomic JSON write of the entries (rank 0 alone)."""
+        if not is_writer():
+            return
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         tmp = path + ".tmp"
         with open(tmp, "w") as f:

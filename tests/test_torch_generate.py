@@ -208,7 +208,8 @@ HWR_MODULES = ("ops.ctc", "ops.augment", "models.hwr", "training.hwr_trainer",
                "data.rimes", "utils.png", "train", "inference.eval",
                "inference.quality", "inference.load", "ops.masks",
                "analysis.mturk", "get_styles", "generate", "evaluate",
-               "eval_writer_id", "play_styles", "parse_mturk")
+               "eval_writer_id", "play_styles", "parse_mturk",
+               "parallel.mesh", "ops.rows", "graft_entry")
 
 
 def test_port_imports_no_jax():
