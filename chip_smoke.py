@@ -162,11 +162,23 @@ Phases, in order; any failure exits non-zero:
     GAN-trained lines/s on 2 ranks against 1 (the second cycle) and each
     rank's peak memory (gloo through the host on one card: not a
     multi-card NCCL figure);
-17. summary — one JSON line of kernels (the epilogue at generation and on
+17. the synthetic pipeline — ``python -m
+    handwriting_line_generation_tpu_torch.pipeline`` on the card at the
+    configs' widths over 8 x 8 synthetic lines: ``--family iam3`` with 20
+    recognizer steps, 20 autoencoder steps and 14 GAN lessons on the
+    written corpus (exit 0, each stage's ``checkpoint-latest`` at its
+    budget, each stage process's CTC launches exact), the same call again
+    (every stage skipped, no launch), and ``--family rimes3 --through
+    spaced --check-cache`` (the ``spaced_loc`` cache built, every cached
+    row equal to the live alignment, a count and an auto lesson with and
+    without the cache giving equal losses and gradient groups, under
+    deterministic algorithms); then the CTC kernel against its plain
+    version and timed at each stage's shape;
+18. summary — one JSON line of kernels (the epilogue at generation and on
     the evaluation path; the CTC kernel once for each path that runs it,
-    with that path's launches and main-bucket times; the CLI's stages and
-    the distributed runs' ranks at their own shapes), then the device line
-    last.
+    with that path's launches and main-bucket times; the CLI's stages, the
+    distributed runs' ranks and the pipeline's stages at their own
+    shapes), then the device line last.
 
 Imports nothing of JAX.  Exits non-zero without a CUDA device.
 """
@@ -2654,6 +2666,144 @@ def dist_phase(torch, tt, F, ctc, card, root, cli_root):
 
 
 
+# phase 17: the synthetic pipeline, each stage a fresh train CLI process,
+# at a cut corpus and budget; its stages' CTC launches come from each
+# process's last line
+PIPE_CUT = ["data.synthetic_authors=8", "data.synthetic_lines=8"]
+PIPE_STEPS, PIPE_GAN_LESSONS = 20, 14
+PIPE_TIMEOUT = 600                 # s for one pipeline call
+
+
+def _pipeline_start(family, save_dir, *flags):
+    """Start ``python -m ...pipeline --family FAMILY`` at the cut, on the
+    card; returns the process and its start time."""
+    argv = [sys.executable, "-m",
+            "handwriting_line_generation_tpu_torch.pipeline", "--family",
+            family, "--save-dir", str(save_dir), "--device", DEVICE,
+            *_pairs(PIPE_CUT + [f"trainer.iterations={PIPE_STEPS}"]),
+            *flags]
+    print(" ".join(argv[2:]), flush=True)
+    return (subprocess.Popen(argv, cwd=REPO, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True),
+            time.perf_counter())
+
+
+def _pipeline_wait(started):
+    """(exit code, seconds, output) of a started pipeline call; killed
+    past ``PIPE_TIMEOUT``."""
+    proc, t0 = started
+    try:
+        out, _ = proc.communicate(timeout=PIPE_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    print(out, flush=True)
+    return proc.returncode, time.perf_counter() - t0, out
+
+
+def _stage_launches(save_dir, name):
+    """The CTC launches each train process of a stage counted."""
+    log = pathlib.Path(save_dir, name + ".log")
+    return [int(l.split()[-1]) for l in log.read_text().splitlines()
+            if l.startswith("kernel launches: ctc ")]
+
+
+def pipeline_phase(torch, tt, F, ctc, card):
+    """Phase 17.  Returns the kernels-line rows of the pipeline's CTC
+    paths."""
+    from handwriting_line_generation_tpu_torch.utils.checkpoint import \
+        load_meta
+    t_phase = time.perf_counter()
+    (REPO / "saved").mkdir(exist_ok=True)
+    # the GAN reads its corpus only from inside the checkout
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pipeline_",
+                                     dir=REPO / "saved") as tmp:
+        save_dir = pathlib.Path(tmp)
+        rows = _pipeline_runs(load_meta, save_dir, card)
+    out = []
+    for name, (b, t, lab), launches in rows:
+        err = check_ctc(torch, ctc, t, lab, seed=t + lab, batch=b)
+        out.append((f"pipeline {name}", (b, t, lab), launches, err,
+                    time_ctc(torch, tt, F, ctc, t, lab, card, batch=b)))
+    print(f"phase 17: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
+def _iam3_runs(load_meta, save_dir, iam, due, card):
+    """``iam3`` through the GAN, then again; returns its stages' CTC
+    launches."""
+    gan = ["--gan-iterations", str(PIPE_GAN_LESSONS)]
+    rc, secs, _ = _pipeline_wait(_pipeline_start("iam3", save_dir, *gan))
+    launches = {n: _stage_launches(save_dir, n) for n in iam}
+    at = {n: load_meta(str(save_dir / n), "checkpoint-latest")["iteration"]
+          for n in iam}
+    gan_log = (save_dir / "syn_gan3.log").read_text()
+    corpus = (save_dir / "syn_text.txt").read_text().splitlines()
+    print(f"pipeline iam3: exit {rc}, {secs:.1f} s; checkpoint-latest at "
+          f"{at}; CTC launches {launches}; corpus {len(corpus)} lines "
+          f"{card}", flush=True)
+    if rc != 0 or at != iam or any(launches[n] != [due[n]] for n in iam) \
+            or len(corpus) != 5000 or "does not exist" in gan_log:
+        raise AssertionError("the iam3 pipeline: a stage failed, stopped "
+                             "short, launched the CTC kernel other than "
+                             f"{due}, or the GAN missed its corpus")
+    rc, secs, out = _pipeline_wait(_pipeline_start("iam3", save_dir, *gan))
+    again = {n: _stage_launches(save_dir, n) for n in iam}
+    print(f"pipeline iam3 again: exit {rc}, {secs:.1f} s; "
+          f"{out.count('skipped')} stages skipped", flush=True)
+    if rc != 0 or again != launches or out.count("skipped") != len(iam):
+        raise AssertionError("a second iam3 pipeline call took a step")
+    return launches
+
+
+def _pipeline_runs(load_meta, save_dir, card):
+    """The pipeline calls of phase 17 and their checks; returns each
+    stage's CTC shape and launches."""
+    iam = {"syn_hwr3": PIPE_STEPS, "syn_auto3": PIPE_STEPS,
+           "syn_gan3": PIPE_GAN_LESSONS}
+    rimes = {"syn_rimes_hwr3": PIPE_STEPS, "syn_rimes_auto3": PIPE_STEPS}
+    # genRecog and reconRecog twice a 7-lesson cycle, none in validation
+    # (val_step 2000); a step each for the recognizer and the autoencoder
+    due = {n: (4 * PIPE_GAN_LESSONS // 7 if "gan" in n else PIPE_STEPS)
+           for n in {**iam, **rimes}}
+    # the two families run side by side, each in its own directory
+    rimes_job = _pipeline_start("rimes3", save_dir / "rimes3", "--through",
+                                "spaced", "--check-cache")
+    try:
+        launches = _iam3_runs(load_meta, save_dir / "iam3", iam, due, card)
+    finally:
+        rc, secs, out = _pipeline_wait(rimes_job)
+    rl = {n: _stage_launches(save_dir / "rimes3", n) for n in rimes}
+    cache = next(json.loads(l[l.index("{"):l.rindex("}") + 1])
+                 for l in out.splitlines()
+                 if "cache against live alignment" in l)
+    print(f"pipeline rimes3 through the cache: exit {rc}, {secs:.1f} s; CTC "
+          f"launches {rl}; cache against live: {cache['rows']} rows, "
+          f"{cache['mismatched_positions']} of {cache['positions']} "
+          f"positions differ; lessons {cache['lessons']} {card}",
+          flush=True)
+    if rc != 0 or any(rl[n] != [due[n]] for n in rimes) \
+            or cache["mismatched_positions"] != 0 or any(
+                v["max_loss_diff"] != 0 or v["max_group_diff"] != 0
+                for v in cache["lessons"].values()):
+        raise AssertionError("the rimes3 cache differs from live alignment, "
+                             "or a stage failed")
+
+    # each stage's CTC shape: frames W/4 for the recognizer and reconRecog,
+    # W/8 for the autoencoder's head, the generated lines' spaced length
+    # for genRecog
+    gan = _config("syn_gan3.json", [])
+    gen_t = min(gan.model.max_gen_length, 6 * max(gan.data.label_buckets))
+    lines = gan.data.batch_size * gan.data.a_batch_size
+    shapes = {"syn_hwr3": (32, 112, 16), "syn_auto3": (28, 56, 16),
+              "syn_gan3": (lines, gen_t, 16),
+              "syn_rimes_hwr3": (32, 112, 16),
+              "syn_rimes_auto3": (28, 56, 16)}
+    return [(name, shape, sum({**launches, **rl}[name]))
+            for name, shape in shapes.items()]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2889,7 +3039,11 @@ def main():
                            pathlib.Path(ckpts.name, "cli"))
     ckpts.cleanup()
 
-    # 17. summary
+    # 17. the synthetic pipeline: iam3 through the GAN and again (no step),
+    # rimes3 through the spaced_loc cache, held against live alignment
+    pipe_rows = pipeline_phase(torch, tt, F, ctc, card)
+
+    # 18. summary
     print(smi)
     # the CTC kernel once per path that runs it: each entry's launches come
     # from that path's run, its times from that path's main bucket
@@ -2901,7 +3055,7 @@ def main():
         ("GAN training", (4,) + GAN_CTC_BUCKETS[0], gan_launches, gan_err,
          gan_t),
         ("GAN training run", (4,) + GAN_CTC_BUCKETS[0], run_launches,
-         gan_err, gan_t)] + cli_rows + dist_rows
+         gan_err, gan_t)] + cli_rows + dist_rows + pipe_rows
     print(json.dumps({"kernels": [{
         "name": "gen_epilogue", "route": "cuda",
         "source": "handwriting_line_generation_tpu_torch/csrc/gen_epilogue.cu",

@@ -1,8 +1,8 @@
 """Character sets, label <-> string codecs and greedy CTC decoding.
 
 A copy of ``handwriting_line_generation_tpu/charset.py``'s ``Charset``
-(with ``load``), ``IAM_CHARSET``, ``RIMES_CHARSET`` and greedy decoders
-(the port imports nothing of the JAX package).  Index 0 is the CTC blank; characters are
+(with ``load`` and ``save``), ``IAM_CHARSET``, ``RIMES_CHARSET`` and greedy
+decoders (the port imports nothing of the JAX package).  Index 0 is the CTC blank; characters are
 indexed from 1, so ``num_class == len(chars) + 1``.
 """
 
@@ -69,6 +69,16 @@ class Charset:
             else:
                 out.append(table[v])
         return "".join(out)
+
+    def save(self, path: str) -> None:
+        """Write the reference's charset JSON (``char_to_idx`` and
+        ``idx_to_char``), byte-equal to the JAX package's file."""
+        payload = {
+            "char_to_idx": self.char_to_idx,
+            "idx_to_char": {str(k): v for k, v in self.idx_to_char.items()},
+        }
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(payload, f, ensure_ascii=False)
 
     @staticmethod
     def load(path: str) -> "Charset":

@@ -36,8 +36,10 @@ share of the records and of every batch, the gradients are averaged over
 ``data``, and with ``M`` > 1 the Adam state is sharded over ``model``.
 Rank 0 builds the CUDA kernels before the others load them, and alone
 writes the run directory; every rank prints its log lines (with its
-``rank``).  ``--profile DIR`` writes a ``torch.profiler`` Chrome trace of
-the run (CUDA activity on the card) to ``DIR/trace_rank<R>.json``;
+``rank``).  The last line of a run counts the CTC kernel's launches in
+the process (``kernel launches: ctc N``).  ``--profile DIR`` writes a
+``torch.profiler`` Chrome trace of the run (CUDA activity on the card) to
+``DIR/trace_rank<R>.json``;
 ``--debug`` turns on autograd's anomaly detection.
 """
 
@@ -58,6 +60,7 @@ from handwriting_line_generation_tpu_torch.config import (
 from handwriting_line_generation_tpu_torch.data.datasets import (
     Prefetcher, forever, make_batcher,
 )
+from handwriting_line_generation_tpu_torch.ops.ctc import ctc_loss_cuda
 from handwriting_line_generation_tpu_torch.parallel.mesh import (
     barrier, init_distributed, is_writer, make_mesh, rank_device, shutdown,
 )
@@ -194,6 +197,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                           fsdp=args.fsdp > 1)
     finally:
         batches.close()
+    print(f"kernel launches: ctc {ctc_loss_cuda.launches}", flush=True)
     shutdown()
     return 0
 

@@ -3,9 +3,11 @@
 Counterpart of ``handwriting_line_generation_tpu/training/losses.py``: the
 adversarial losses (hinge for the discriminator, ``-mean`` for the
 generator), which the trainer calls by name as functions, the VAE style KL,
-and the registry entries the GAN config names by string (``L1Loss``,
-``MSELoss``/``MSE``; the CTC goes through ``ops.ctc.ctc_loss_fast``).
-Discriminator scores arrive in float32.
+and the registry of losses a config names by string, under the JAX
+package's names (``L1Loss``, ``MSELoss``/``MSE``, ``CrossEntropyLoss``,
+``HingeLoss``, ``AdaptiveHingeLoss``, ``sigmoid_BCE_loss``, ``styleReg``,
+``VAEKL``; the CTC goes through ``ops.ctc.ctc_loss_fast``).  Discriminator
+scores arrive in float32.
 """
 
 from __future__ import annotations
@@ -23,6 +25,44 @@ def mse(pred: torch.Tensor, target: torch.Tensor, **_) -> torch.Tensor:
     return ((pred - target) ** 2).mean()
 
 
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, **_
+                  ) -> torch.Tensor:
+    """Mean negative log-likelihood of ``labels`` under the softmax of
+    ``logits``, the probabilities clamped at 1e-12 before the log (as the
+    JAX loss computes them: no max subtracted)."""
+    e = torch.exp(logits)
+    logp = torch.log(torch.clamp(e / e.sum(-1, keepdim=True), min=1e-12))
+    oh = torch.nn.functional.one_hot(labels.long(), logits.shape[-1])
+    return -(oh * logp).sum(-1).mean()
+
+
+def hinge(pred: torch.Tensor, target: torch.Tensor, threshold: float = 0.0,
+          **_) -> torch.Tensor:
+    """Dead-zone L1: no penalty within ``threshold``."""
+    return torch.relu((pred - target).abs() - threshold).mean()
+
+
+def adaptive_hinge(pred: torch.Tensor, target: torch.Tensor,
+                   low: float = 0.5, high: float = 2.0, **_) -> torch.Tensor:
+    """Hinge whose dead zone is a tenth of ``|target|``, clamped to
+    ``[low, high]``."""
+    thresh = torch.clamp(target.abs() * 0.1, low, high)
+    return torch.relu((pred - target).abs() - thresh).mean()
+
+
+def sigmoid_bce(pred: torch.Tensor, target: torch.Tensor, **_
+                ) -> torch.Tensor:
+    """Binary cross-entropy of logits ``pred`` against targets above or
+    below 0.5, the signed logit clipped to ``[-30, 30]``."""
+    p = torch.clamp(torch.where(target > 0.5, pred, -pred), -30, 30)
+    return torch.log1p(torch.exp(-p)).mean()
+
+
+def style_reg(style: torch.Tensor, weight_dummy=None, **_) -> torch.Tensor:
+    """L2 magnitude regularizer of style vectors."""
+    return (style ** 2).mean()
+
+
 def vae_kl(mu: torch.Tensor, log_sigma: torch.Tensor, **_) -> torch.Tensor:
     """KL(N(mu, sigma) || N(0, 1)), averaged over entries."""
     return (0.5 * (torch.exp(2 * log_sigma) + mu ** 2 - 1.0
@@ -33,6 +73,11 @@ REGISTRY: Dict[str, Callable] = {
     "L1Loss": l1,
     "MSE": mse,
     "MSELoss": mse,
+    "CrossEntropyLoss": cross_entropy,
+    "HingeLoss": hinge,
+    "AdaptiveHingeLoss": adaptive_hinge,
+    "sigmoid_BCE_loss": sigmoid_bce,
+    "styleReg": style_reg,
     "VAEKL": vae_kl,
 }
 

@@ -5,8 +5,10 @@ Counterpart of ``handwriting_line_generation_tpu/training/train_state.py``:
 * :func:`make_lr_schedule` — the reference's learning-rate schedules, as
   functions of the 0-based update count, which is what optax passes its
   schedule; :func:`make_optimizer` pairs one with ``torch.optim.Adam``
-  through ``LambdaLR``.  optax's Adam and torch's compute the same update
-  (bias-corrected moments, ``eps`` added to the square root).
+  (or ``SGD``) through ``LambdaLR``.  optax's Adam and torch's compute the
+  same update (bias-corrected moments, ``eps`` added to the square root),
+  and torch's ``weight_decay`` is ``optax.add_decayed_weights`` chained in
+  front of the update.
 * :class:`ShardedAdam` — that Adam with its state sharded over a mesh's
   ``model`` axis (``--fsdp``); every optimizer here takes ``shard=`` (the
   mesh) to build one.
@@ -196,30 +198,39 @@ class ShardedAdam(torch.optim.Adam):
         super().load_state_dict(dict(state_dict, state=state))
 
 
-def _adam(params, cfg: OptimConfig, shard=None, lr: Optional[float] = None
-          ) -> torch.optim.Adam:
-    """Adam with ``cfg.betas`` and eps 1e-8; a :class:`ShardedAdam` over
-    ``shard``'s ``model`` axis when a mesh is given."""
-    kw = dict(lr=cfg.lr if lr is None else lr, betas=tuple(cfg.betas),
-              eps=1e-8)
-    if shard is None:
-        return torch.optim.Adam(params, **kw)
-    return ShardedAdam(params, shard, **kw)
+def _optimizer(params, cfg: OptimConfig, shard=None
+               ) -> torch.optim.Optimizer:
+    """The optimizer ``cfg.kind`` names, in any case, as the JAX ``_adam``
+    reads it: ``adam`` (``cfg.betas``, eps 1e-8; a :class:`ShardedAdam`
+    over ``shard``'s ``model`` axis when a mesh is given) or ``sgd``
+    (plain steps, no momentum: ``optax.sgd``; it has no state to shard).
+    ``cfg.weight_decay`` adds ``wd * p`` to each gradient before the
+    update, as ``optax.add_decayed_weights`` chained in front of it does:
+    coupled L2, not AdamW."""
+    kind = cfg.kind.lower()
+    if kind == "adam":
+        kw = dict(lr=cfg.lr, betas=tuple(cfg.betas), eps=1e-8,
+                  weight_decay=cfg.weight_decay)
+        if shard is None:
+            return torch.optim.Adam(params, **kw)
+        return ShardedAdam(params, shard, **kw)
+    if kind == "sgd":
+        return torch.optim.SGD(params, lr=cfg.lr, momentum=0.0,
+                               weight_decay=cfg.weight_decay)
+    raise ValueError(f"unknown optimizer {cfg.kind!r}")
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter], cfg: OptimConfig,
                    total_iters: int, shard=None
-                   ) -> Tuple[torch.optim.Adam, torch.optim.lr_scheduler.LambdaLR]:
-    """Adam with ``cfg.betas`` and eps 1e-8, its learning rate following
+                   ) -> Tuple[torch.optim.Optimizer,
+                              torch.optim.lr_scheduler.LambdaLR]:
+    """The optimizer of :func:`_optimizer`, its learning rate following
     :func:`make_lr_schedule` (call the scheduler's ``step`` after each
     optimizer step); its state sharded over ``shard``'s ``model`` axis
     when a mesh is given."""
-    if cfg.kind != "adam" or cfg.weight_decay:
-        raise NotImplementedError(f"optimizer {cfg.kind!r} with weight decay "
-                                  f"{cfg.weight_decay} is not ported")
     sched = make_lr_schedule(cfg.lr_schedule, cfg.lr, total_iters,
                              cfg.warmup_steps, cfg.cycle_size)
-    opt = _adam(params, cfg, shard)
+    opt = _optimizer(params, cfg, shard)
     return opt, torch.optim.lr_scheduler.LambdaLR(
         opt, lambda step: sched(step) / cfg.lr)
 
@@ -250,27 +261,26 @@ def partition_params(names: Iterable[str], *, hwr_frozen: bool
 
 class PartitionAdam:
     """``optax.chain(clip(grad_clip), multi_transform(...))`` for one
-    optimizer over a model's parameter list: Adam, at ``cfg.lr`` times the
-    partition's entry of ``scales``, steps the parameters whose label is in
-    ``scales``; the rest get no update.  :meth:`step` takes the gradients of
-    every parameter (None counts as zeros).  ``shard``: a mesh whose
+    optimizer over a model's parameter list: the optimizer ``cfg.kind``
+    names (Adam or SGD), at ``cfg.lr`` times the partition's entry of
+    ``scales``, steps the parameters whose label is in ``scales``; the rest
+    get no update.  ``cfg.weight_decay`` comes after the element clip, as
+    the transform's ``add_decayed_weights`` does inside the JAX chain, and
+    a zero-filled gradient still decays its parameter.  :meth:`step` takes
+    the gradients of every parameter (None counts as zeros).  ``shard``: a mesh whose
     ``model`` axis shards the state (:class:`ShardedAdam`)."""
 
     def __init__(self, params: Sequence[nn.Parameter], labels: Sequence[str],
                  scales: Dict[str, float], cfg: OptimConfig,
                  grad_clip: float, total_iters: int, shard=None):
-        if cfg.kind != "adam" or cfg.weight_decay:
-            raise NotImplementedError(f"optimizer {cfg.kind!r} with weight "
-                                      f"decay {cfg.weight_decay} is not "
-                                      f"ported")
         self.params = list(params)
         self.grad_clip = grad_clip
         self.index = [i for i, l in enumerate(labels) if l in scales]
         groups = [{"params": [self.params[i] for i in self.index
                               if labels[i] == part], "lr": cfg.lr * scale}
                   for part, scale in scales.items()]
-        self.optimizer = _adam([g for g in groups if g["params"]], cfg,
-                               shard)
+        self.optimizer = _optimizer([g for g in groups if g["params"]],
+                                    cfg, shard)
         sched = make_lr_schedule(cfg.lr_schedule, cfg.lr, total_iters,
                                  cfg.warmup_steps, cfg.cycle_size)
         self.scheduler = torch.optim.lr_scheduler.LambdaLR(

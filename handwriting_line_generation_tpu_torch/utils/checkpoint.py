@@ -11,8 +11,10 @@ model's weights only) when the monitored value improves; a trainer's side
 objects (the GAN's SWA weights) go beside each as ``<name>-<key>``.
 
 :func:`extract_subtree` takes one submodule's entries out of a state_dict
-by key prefix (``encoder`` out of an autoencoder's model), the role the
-JAX package's ``extract_subtree`` plays on nested param dicts.  JAX
+by key prefix (``encoder`` out of an autoencoder's model) and
+:func:`graft_subtree` puts them back, the roles the JAX package's
+``extract_subtree`` and ``graft_subtree`` play on nested param dicts;
+:func:`param_summary` counts parameters by top-level submodule.  JAX
 ``.msgpack`` checkpoints are not read here.
 
 Multi-process runs: only rank 0 writes (:func:`save_checkpoint` does
@@ -31,7 +33,7 @@ from __future__ import annotations
 import glob
 import json
 import os
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 
@@ -97,6 +99,40 @@ def extract_subtree(state_dict: Dict[str, torch.Tensor], prefix: str
     if not out:
         raise KeyError(f"no entries under {prefix!r}")
     return out
+
+
+def graft_subtree(state_dict: Dict[str, torch.Tensor], prefix: str,
+                  subtree: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+    """A new state_dict: ``state_dict`` with its entries under ``prefix``
+    (``.``- or ``/``-joined) replaced by ``subtree``'s, prefixed (the
+    inverse of :func:`extract_subtree`); raises ``KeyError`` if there are
+    none to replace."""
+    head = prefix.replace("/", ".").rstrip(".") + "."
+    out = {k: v for k, v in state_dict.items() if not k.startswith(head)}
+    if len(out) == len(state_dict):
+        raise KeyError(f"no entries under {prefix!r}")
+    out.update({head + k: v for k, v in subtree.items()})
+    return out
+
+
+def param_summary(params: Union[torch.nn.Module, Dict[str, torch.Tensor]]
+                  ) -> str:
+    """Parameter counts: the total, then each top-level submodule's (the
+    first component of the keys).  ``params``: a module (its parameters)
+    or a state_dict; pass parameters only (``dict(m.named_parameters())``,
+    or a :func:`~..convert.convert_params` result without ``spectral``) to
+    leave buffers such as the spectral-norm ``u``'s out, as the JAX
+    package's count of a flax ``params`` tree does."""
+    if isinstance(params, torch.nn.Module):
+        params = dict(params.named_parameters())
+    groups: Dict[str, int] = {}
+    for k, v in params.items():
+        top = k.split(".")[0]
+        groups[top] = groups.get(top, 0) + v.numel()
+    lines = [f"total params: {sum(groups.values()):,}"]
+    lines += [f"  {k}: {groups[k]:,}" for k in sorted(groups)]
+    return "\n".join(lines)
 
 
 class CheckpointManager:
