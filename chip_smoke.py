@@ -174,11 +174,33 @@ Phases, in order; any failure exits non-zero:
     without the cache giving equal losses and gradient groups, under
     deterministic algorithms); then the CTC kernel against its plain
     version and timed at each stage's shape;
-18. summary — one JSON line of kernels (the epilogue at generation and on
-    the evaluation path; the CTC kernel once for each path that runs it,
-    with that path's launches and main-bucket times; the CLI's stages, the
-    distributed runs' ranks and the pipeline's stages at their own
-    shapes), then the device line last.
+18. every model variant and the JAX checkpoints (f32 and TF32 off unless
+    named) — (1) the committed JAX checkpoint ``tests/fixtures/jax_ckpt``
+    (``model_best.msgpack``, written by the JAX package) through
+    ``load_model`` (the decoder's MB/s), rendered through the epilogue
+    kernel on the fixture's spaced text, styles and noise, within 1e-4 of
+    the JAX render stored beside it (9 launches); (2) the CRNN recognizer
+    at full width (hidden 512, B = 16, 64 x 1024, Adam 1e-3): 30 steps and
+    an eval step through the CTC kernel, the loss falling, 31 launches, a
+    step's gradients against the plain CTC, the step's ms and its device
+    split (conv, LSTM, CTC, other, idle) from a profile; SmallCRNN for 5
+    steps on 24-row bands 512 wide; (3) the 32-px family at the paper's
+    widths: a 512-line bf16 render of the ``small`` generator (9 launches,
+    32 rows, 2T columns) against the plain path, and the GAN paper cycle's
+    gen and disc lessons at B = 4 on 32-row lines through the CTC kernel
+    (the count and auto lessons need the char style encoder, whose trunk
+    needs 64 rows in both packages); (4) ``phase_upsample`` at the paper's
+    width: 9 launches, lines/s in turns against the sequential generator,
+    an f32 forward within 1e-3 of it; (5) the normalization augmentation
+    on 16 lines of 64 x 1024, the card against the CPU; the epilogue and
+    the CTC kernel against their plain versions and timed at each new
+    path's shapes;
+19. summary — one JSON line of kernels (the epilogue at generation, on
+    the evaluation path and on phase 18's paths; the CTC kernel once for
+    each path that runs it, with that path's launches and main-bucket
+    times; the CLI's stages, the distributed runs' ranks, the pipeline's
+    stages and phase 18's recognizers at their own shapes), then the
+    device line last.
 
 Imports nothing of JAX.  Exits non-zero without a CUDA device.
 """
@@ -1923,37 +1945,6 @@ def infer_chain(torch, np, ge, run_dir, config, overrides, work):
     return total
 
 
-def time_epilogue_forward(torch, ge, tt, b, t, card):
-    """The 9 epilogue calls of one paper-width float32 forward at (B, T)
-    with a conv bias: each kernel call against its plain version, then the
-    kernel's, the plain version's and the bound's ms summed over the 9.
-    Returns (kernel ms, plain ms, bound ms, bound_by, max abs err)."""
-    k_ms = p_ms = b_ms = err = 0.0
-    bound_by = "bytes"
-    for blk, c, h, w, blur in epilogue_calls(t=t):
-        args, bias = epilogue_inputs(torch, b, c, h, w, torch.float32,
-                                     seed=blk + t)
-        err = max(err, check_epilogue(torch, ge, args, blur, "float32",
-                                      f"evaluation block {blk} B={b} C={c} "
-                                      f"H={h} W={w}", bias=bias))
-        k_ms += tt.event_ms(lambda: ge.block_epilogue(
-            *args, apply_blur=blur, bias=bias), iters=20)
-        p_ms += tt.event_ms(lambda: ge.block_epilogue_reference(
-            *args, apply_blur=blur, bias=bias), iters=3, warmup=1)
-        n = b * h * w
-        t_bytes = (2 * n * c + n + 2 * c + 2 * b * c) * 4 \
-            / HBM_BYTES_PER_S * 1e3
-        t_ops = n * c * OPS_PER_ELEM[blur] / F32_OPS_PER_S * 1e3
-        if t_ops > t_bytes:
-            bound_by = "operations"
-        b_ms += max(t_bytes, t_ops)
-        del args
-    print(f"gen_epilogue evaluation per forward (9 calls, B={b} T={t} "
-          f"float32): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
-          f"{b_ms:.4f} ms ({bound_by}) {card}", flush=True)
-    return k_ms, p_ms, b_ms, bound_by, err
-
-
 def _eval_batches(np, tt):
     """``EVAL_BATCHES`` batch dicts of ``EVAL_B_MAIN`` seeded u8 glyph
     lines of 64 x 1024 (``trace_train.batch``), dequantized on the host,
@@ -2105,25 +2096,25 @@ def infer_rates(torch, np, ge, tt, ts, card):
 
 
 def infer_phase(torch, np, ge, tt, ts, card, root):
-    """Phase 15.  Returns the kernels-line fields of the evaluation path's
-    epilogue entry."""
+    """Phase 15.  Returns the kernels-line entry of the evaluation path's
+    epilogue (B = ``EVAL_B_MAIN``, T = ``EVAL_T[-1]``; its error the
+    largest of every (B, T))."""
     with tempfile.TemporaryDirectory() as work:
         launches = infer_chain(torch, np, ge,
                                pathlib.Path(root) / "iam_gan_paper",
                                "iam_gan_paper.json", INFER_OVERRIDES, work)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    err, times = 0.0, {}
+    err, rows = 0.0, {}
     for t in EVAL_T:
         for b in EVAL_B:
-            k_ms, p_ms, b_ms, by, e = time_epilogue_forward(
-                torch, ge, tt, b, t, card)
-            err = max(err, e)
-            times[(b, t)] = (k_ms, p_ms, b_ms, by)
+            rows[(b, t)] = epilogue_row(
+                torch, ge, tt, f"gen_epilogue (evaluation, B={b} T={t} "
+                "float32)", epilogue_calls(t=t), b, torch.float32, launches,
+                card)
+            err = max(err, rows[(b, t)]["max_abs_err"])
     infer_rates(torch, np, ge, tt, ts, card)
-    k_ms, p_ms, b_ms, by = times[(EVAL_B_MAIN, EVAL_T[-1])]
-    return dict(launches=launches, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                bound_ms=b_ms, bound_by=by)
+    return dict(rows[(EVAL_B_MAIN, EVAL_T[-1])], max_abs_err=err)
 
 
 # phase 16: multi-process training on the one card.  Every run is the
@@ -2804,6 +2795,469 @@ def _pipeline_runs(load_meta, save_dir, card):
             for name, shape in shapes.items()]
 
 
+# phase 18: every model variant of the JAX package and its checkpoints.
+# The committed JAX fixture through load_model and the epilogue kernel; the
+# CRNN and SmallCRNN recognizers through the CTC kernel; the 32-px family
+# and phase_upsample at the paper's widths; the normalization augmentation
+FIXTURE_DIR = REPO / "tests" / "fixtures" / "jax_ckpt"
+# the fixture's render against the JAX package's (float32, TF32 off): the
+# same bound as a generator forward against its plain path on the card
+JAX_RENDER_ATOL = 1e-4
+DECODE_REPS = 20
+CRNN_STEPS = 30
+SMALL_CRNN_STEPS, SMALL_CRNN_H, SMALL_CRNN_W = 5, 24, 512
+# the 32-px family: the small recognizer trunk, generator and
+# discriminator, the "32" perceptual encoder, paper widths otherwise
+GAN32_OVERRIDES = ["model.hwr.small=true", "model.generator.small=true",
+                   "model.discriminator.small=true",
+                   "trainer.encoder_type=32", "model.pretrained_hwr=",
+                   "trainer.encoder_weights=", "data.text_data="]
+NORM_LINES = 16                     # 64 x 1024 lines, card against CPU
+NORM_ATOL = 1e-4
+
+
+def small_epilogue_calls(dim=256, t=192):
+    """(block, C, H, W, apply_blur) of the 32-px generator's 9 epilogue
+    calls: blocks 0-3 as the paper generator's; block 4 does not upsample,
+    so its first half is unblurred at 32 rows, and its second half is
+    deferred into the final 1x1 conv."""
+    shapes = block_shapes(dim, t)[:4] + [(dim // 16, 32, 2 * t)]
+    calls = []
+    for i, (c, h, w) in enumerate(shapes):
+        calls.append((i, c, h, w, 0 < i < 4))
+        if i < 4:
+            calls.append((i, c, h, w, False))
+    return calls
+
+
+def epilogue_row(torch, ge, tt, name, calls, b, dtype, launches, card,
+                 max_err=0.0):
+    """The kernel against its plain version at each call of a forward
+    (batch ``b``, a conv bias), their CUDA-event times, byte bounds and
+    the kernel's plan, summed into one entry of the kernels line (its
+    ``max_abs_err`` at least ``max_err``, earlier checks' error)."""
+    dname = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    esize = 2 if dtype == torch.bfloat16 else 4
+    k_ms = p_ms = b_ms = 0.0
+    err = max_err
+    bound_by = "bytes"
+    for blk, c, h, w, blur in calls:
+        args, bias = epilogue_inputs(torch, b, c, h, w, dtype, seed=blk)
+        err = max(err, check_epilogue(
+            torch, ge, args, blur, dname,
+            f"{name}: block {blk} B={b} C={c} H={h} W={w}", bias=bias))
+        t_k = tt.event_ms(lambda: ge.block_epilogue(
+            *args, apply_blur=blur, bias=bias), iters=20)
+        t_p = tt.event_ms(lambda: ge.block_epilogue_reference(
+            *args, apply_blur=blur, bias=bias), iters=3, warmup=1)
+        plan = ge.plan(args[0].shape, dtype, blur)
+        n = b * h * w
+        nbytes = (2 * n * c + n + 3 * c + 2 * b * c) * esize
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = n * c * OPS_PER_ELEM[blur] / F32_OPS_PER_S * 1e3
+        if t_ops > t_bytes:
+            bound_by = "operations"
+        bound = max(t_bytes, t_ops)
+        k_ms, p_ms, b_ms = k_ms + t_k, p_ms + t_p, b_ms + bound
+        print(f"{name} block {blk} C={c} H={h} W={w} blur={blur} B={b} "
+              f"{dname}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
+              f"{bound:.4f} ms ({nbytes / 1e9:.3f} GB), kernel / bound "
+              f"{t_k / bound:.2f}; y from {plan['y_from']} (cluster "
+              f"{plan['cluster']}, {plan['pixels_per_rank']} pixels per "
+              f"rank, {plan['threads']} threads, {plan['smem_bytes']} B "
+              f"shared) {card}", flush=True)
+        del args
+    print(f"{name} per forward ({len(calls)} calls): kernel {k_ms:.4f} ms, "
+          f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({bound_by}), "
+          f"launches on its path {launches} {card}", flush=True)
+    return {"name": name, "route": "cuda",
+            "source": "handwriting_line_generation_tpu_torch/csrc/"
+                      "gen_epilogue.cu",
+            "replaces": "handwriting_line_generation_tpu/ops/"
+                        "gen_epilogue.py:39",
+            "launches": launches, "max_abs_err": err, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def jax_checkpoint_step(torch, np, ge, tt, card):
+    """18.1: the committed JAX fixture (``model_best.msgpack``, written by
+    the JAX package) through ``load_model``, rendered through the epilogue
+    kernel on the fixture's spaced text, styles and noise, against the JAX
+    render stored beside it; the decoder's rate.  Returns the kernels-line
+    entry."""
+    from handwriting_line_generation_tpu_torch.config import (
+        apply_overrides, load_config,
+    )
+    from handwriting_line_generation_tpu_torch.inference.load import \
+        load_model
+    from handwriting_line_generation_tpu_torch.utils import msgpack
+    data = (FIXTURE_DIR / "model_best.msgpack").read_bytes()
+    t0 = time.perf_counter()
+    for _ in range(DECODE_REPS):
+        msgpack.restore(data)
+    secs = (time.perf_counter() - t0) / DECODE_REPS
+    fx = json.loads((FIXTURE_DIR / "fixture.json").read_text())
+    cfg = apply_overrides(load_config(str(REPO / fx["config"])),
+                          fx["overrides"])
+    cfg.model.generator.fused_epilogue = True
+    model, step = load_model(cfg, str(FIXTURE_DIR), "model_best",
+                             device=DEVICE)
+    z = np.load(FIXTURE_DIR / "render.npz")
+    noise = [torch.from_numpy(z[f"noise{i}"]).to(DEVICE) for i in range(10)]
+    spaced = torch.from_numpy(z["spaced"]).long().to(DEVICE)
+    ge.block_epilogue.launches = 0
+    with torch.no_grad():
+        img = model.generate_spaced(
+            spaced, torch.from_numpy(z["style"]).to(DEVICE), noise=noise)
+        torch.cuda.synchronize()
+    launches = ge.block_epilogue.launches
+    err = float(np.abs(img.cpu().numpy() - z["image"]).max())
+    print(f"JAX checkpoint {FIXTURE_DIR.name}/model_best.msgpack "
+          f"({len(data)} B, step {step}): decoded at "
+          f"{len(data) / secs / 1e6:.1f} MB/s (host); render "
+          f"{tuple(img.shape)} through the epilogue kernel ({launches} "
+          f"launches) against the JAX render: max abs {err:.3e} (bound "
+          f"{JAX_RENDER_ATOL}, f32, TF32 off); the fixture holds "
+          f"{'a' if model.hwr is not None else 'no'} recognizer "
+          f"{card}", flush=True)
+    if launches != 9 or not err <= JAX_RENDER_ATOL:
+        raise AssertionError("the JAX checkpoint's render disagrees with "
+                             "the JAX package's, or missed the kernel")
+    B, T = z["spaced"].shape
+    return epilogue_row(torch, ge, tt, f"gen_epilogue (JAX checkpoint "
+                        f"render, B={B} T={T} float32)",
+                        epilogue_calls(cfg.model.generator.dim, T), B,
+                        torch.float32, launches, card)
+
+
+def _kernel_split(torch, fn, steps):
+    """Device ms a call of ``fn`` by group (conv: cuDNN convolutions;
+    LSTM: cuDNN's recurrent kernels; matmul: the other GEMMs, the LSTMs'
+    input projections and the dense layers; CTC; other), the idle share
+    1 - busy / wall, and the five longest "other" kernels, over ``steps``
+    profiled calls (CUDA activity only)."""
+    from torch.profiler import ProfilerActivity, profile
+    from handwriting_line_generation_tpu_torch.trace_forward import \
+        _device_us
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    split = {"conv": 0.0, "LSTM": 0.0, "matmul": 0.0, "CTC": 0.0,
+             "other": 0.0}
+    other = []
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        low, ms = evt.key.lower(), _device_us(evt) / 1e3 / steps
+        if "ctc_kernel" in low:
+            split["CTC"] += ms
+        elif "rnn" in low or "lstm" in low:
+            split["LSTM"] += ms
+        elif any(k in low for k in ("conv", "fprop", "dgrad", "wgrad",
+                                    "implicit", "nhwc", "nchw")):
+            split["conv"] += ms
+        elif "gemm" in low or "xmma" in low or "cutlass" in low:
+            split["matmul"] += ms
+        else:
+            split["other"] += ms
+            other.append((ms, evt.key[:60]))
+    busy = sum(split.values())
+    if busy <= 0.0:
+        raise AssertionError("the profile holds no device time")
+    return split, wall, 1.0 - busy / wall, sorted(other, reverse=True)[:5]
+
+
+def _hwr_config(load_config, kind):
+    cfg = load_config(str(HWR_CONFIG))
+    cfg.model.hwr.kind = kind
+    return cfg
+
+
+def crnn_step(torch, tt, F, ctc, HWRTrainer, load_config, card):
+    """18.2: the CRNN at full width (hidden 512, 64 x 1024, B = 16, Adam
+    1e-3, f32, TF32 off): 30 steps and an eval step through the CTC kernel,
+    the loss falling; a step's gradients through the kernel against the
+    plain CTC; the step's time and split; then SmallCRNN steps at H = 24.
+    Returns the CTC rows of both paths."""
+    cfg = _hwr_config(load_config, "crnn")
+    tr = HWRTrainer(cfg, device=DEVICE)
+    tr.init_state(seed=0)
+    batch = tt.batch(seed=0, device=DEVICE)
+    ctc.ctc_loss_cuda.launches = 0
+    losses = [tr.train_step(*batch)[0] for _ in range(CRNN_STEPS)]
+    eval_loss, logp = tr.eval_step(*batch)
+    launches = ctc.ctc_loss_cuda.launches
+    losses = torch.stack(losses).tolist()
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    print(f"CRNN ({type(tr.model).__name__}, hidden 512) losses "
+          + " ".join(f"{v:.4f}" for v in losses)
+          + f"; eval {eval_loss.item():.4f}; ctc launches {launches}",
+          flush=True)
+    if not all(math.isfinite(v) for v in losses) or not last < first \
+            or launches != CRNN_STEPS + 1 \
+            or tuple(logp.shape) != (tt.B, tt.W // 4, CTC_CLASSES):
+        raise AssertionError("the CRNN did not train through the kernel")
+    # one step's gradients, kernel against plain CTC, augmentation off
+    cfg.data.augmentation = None
+    ref = HWRTrainer(cfg, device=DEVICE)
+    ref.init_state(seed=0)
+    params = list(ref.model.parameters())
+    loss_k, lp = ref.loss(*batch)
+    g_k = torch.autograd.grad(loss_k, params, retain_graph=True)
+    B, T, _ = lp.shape
+    loss_p = ctc.ctc_loss(lp, batch[1], torch.full((B,), T, device=DEVICE),
+                          batch[2])
+    g_p = torch.autograd.grad(loss_p, params)
+    worst = max(((a - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(g_k, g_p))
+    print(f"CRNN step, kernel vs plain CTC: loss {loss_k.item():.6f} vs "
+          f"{loss_p.item():.6f}; worst gradient max abs diff / max abs "
+          f"{worst:.2e} (bound {TRAIN_GRAD_RTOL})", flush=True)
+    if not worst <= TRAIN_GRAD_RTOL:
+        raise AssertionError("the CRNN step through the kernel disagrees "
+                             "with the plain CTC")
+    del ref, g_k, g_p, lp
+    step_ms = time_train(tt, tr, batch)
+    split, wall, idle, other = _kernel_split(
+        torch, lambda: tr.train_step(*batch), 3)
+    print(f"CRNN train step (B={tt.B}, 64x{tt.W}, f32, TF32 off): "
+          f"{step_ms:.3f} ms, {tt.B * 1000.0 / step_ms:.1f} trained lines/s;"
+          f" profiled wall {wall:.3f} ms a step, device ms "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+          + f", idle {idle:.3f}; LSTM share of device time "
+          f"{split['LSTM'] / sum(split.values()):.3f}; longest other "
+          f"kernels (ms) {[(round(m, 3), k) for m, k in other]} {card}",
+          flush=True)
+    err = check_ctc(torch, ctc, tt.W // 4, tt.L, seed=181)
+    times = time_ctc(torch, tt, F, ctc, tt.W // 4, tt.L, card)
+    rows = [("CRNN training", (tt.B, tt.W // 4, tt.L), launches, err,
+             times)]
+    del tr
+
+    # SmallCRNN: H = 24 bands of the same lines, 512 px wide
+    cfg = _hwr_config(load_config, "small_crnn")
+    tr = HWRTrainer(cfg, device=DEVICE)
+    tr.init_state(seed=0)
+    lo = 32 - SMALL_CRNN_H // 2
+    image, label, lens, width = batch
+    small = [image[:, lo:lo + SMALL_CRNN_H, :SMALL_CRNN_W].contiguous(),
+             label, lens, torch.clamp(width, max=SMALL_CRNN_W)]
+    ctc.ctc_loss_cuda.launches = 0
+    losses = [tr.train_step(*small)[0].item()
+              for _ in range(SMALL_CRNN_STEPS)]
+    s_launches = ctc.ctc_loss_cuda.launches
+    T = SMALL_CRNN_W // 4
+    print(f"SmallCRNN (H={SMALL_CRNN_H}, 64->24-row bands, W="
+          f"{SMALL_CRNN_W}, T={T}) losses "
+          + " ".join(f"{v:.4f}" for v in losses)
+          + f"; ctc launches {s_launches}", flush=True)
+    if not all(math.isfinite(v) for v in losses) or not losses[0] > 0 \
+            or s_launches != SMALL_CRNN_STEPS:
+        raise AssertionError("SmallCRNN did not step through the kernel")
+    err = check_ctc(torch, ctc, T, tt.L, seed=182)
+    rows.append(("SmallCRNN training", (tt.B, T, tt.L), s_launches, err,
+                 time_ctc(torch, tt, F, ctc, T, tt.L, card)))
+    return rows
+
+
+def _session(torch, cfg, n, seed=0):
+    """A bf16 generation session of ``cfg`` (seeded weights, conv biases)
+    and ``n`` copies of ``bench.TEXT`` with seeded styles."""
+    from handwriting_line_generation_tpu_torch import bench
+    from handwriting_line_generation_tpu_torch.charset import IAM_CHARSET
+    from handwriting_line_generation_tpu_torch.inference.generate import (
+        GenerationSession, cast_params_bf16,
+    )
+    from handwriting_line_generation_tpu_torch.init import (
+        init_model, seed_conv_biases,
+    )
+    model = init_model(cfg, seed)
+    seed_conv_biases(model.generator, seed=1)
+    if cfg.compute_dtype == "bfloat16":
+        cast_params_bf16(model)
+    session = GenerationSession(model, IAM_CHARSET, device=DEVICE)
+    labels, lens = session.encode_texts([bench.TEXT] * n)
+    styles = torch.randn((n, bench.STYLE_DIM), device=DEVICE,
+                         generator=torch.Generator(DEVICE).manual_seed(7))
+    return session, labels, lens, styles
+
+
+def _render(torch, ge, session, labels, lens, styles, fused):
+    from handwriting_line_generation_tpu_torch import bench
+    session.model.generator.fused_epilogue = fused
+    ge.block_epilogue.launches = 0
+    img, _ = session.forward(labels, lens, styles,
+                             spaced_len=bench.SPACED_LEN, seed=0)
+    torch.cuda.synchronize()
+    return img, ge.block_epilogue.launches
+
+
+def gan32_step(torch, np, tt, F, ctc, ge, load_config, card):
+    """18.3: the 32-px family at the paper's widths: a 512-line bf16
+    render through the epilogue kernel (9 launches, 32 rows, 2T columns),
+    against the plain path, each call against its plain version; then the
+    GAN's paper cycle on the 32-px config at B = 4 through the CTC kernel.
+    Returns (the epilogue entry, the CTC row)."""
+    from handwriting_line_generation_tpu_torch import bench
+    from handwriting_line_generation_tpu_torch import trace_gan as tg
+    from handwriting_line_generation_tpu_torch.config import apply_overrides
+    from handwriting_line_generation_tpu_torch.training.gan_trainer import \
+        GanTrainer
+    cfg = bench.paper_config()
+    cfg.generator.small = True
+    session, labels, lens, styles = _session(torch, cfg, MAIN_BATCH)
+    img, launches = _render(torch, ge, session, labels, lens, styles, True)
+    plain, _ = _render(torch, ge, session, labels, lens, styles, False)
+    session.model.generator.fused_epilogue = True
+    want = (MAIN_BATCH, 32, 2 * bench.SPACED_LEN, 1)
+    mad = (img - plain).abs().mean().item()
+    ms = bench.time_forward(session, labels, lens, styles, iters=10)
+    print(f"32-px generator (small, dim 256, bf16): render "
+          f"{tuple(img.shape)}, {launches} epilogue launches; kernel vs "
+          f"plain path mean abs {mad:.3e} (bound {BF16_MEAN_ABS_BOUND}); "
+          f"forward {ms:.3f} ms per {MAIN_BATCH} lines, "
+          f"{MAIN_BATCH * 1000.0 / ms:.1f} lines/s {card}", flush=True)
+    if launches != 9 or tuple(img.shape) != want \
+            or not torch.isfinite(img).all() or not mad <= \
+            BF16_MEAN_ABS_BOUND:
+        raise AssertionError("the 32-px render failed its checks")
+    del session, img, plain
+    row = epilogue_row(torch, ge, tt, f"gen_epilogue (32-px generator, "
+                       f"B={MAIN_BATCH} bf16)",
+                       small_epilogue_calls(t=bench.SPACED_LEN),
+                       MAIN_BATCH, torch.bfloat16, launches, card)
+
+    # the GAN's paper cycle on the 32-px config, f32, TF32 off
+    gcfg = apply_overrides(load_config(str(tg.CONFIG)), GAN32_OVERRIDES)
+    tr = GanTrainer(gcfg, device=DEVICE)
+    tr.init_state(0)
+    data = tg.batch(DEVICE)
+    data = dict(data, image=data["image"][:, ::2, ::2].contiguous(),
+                width=(data["width"] + 1) // 2,
+                fg_mask=data["fg_mask"][:, ::2, ::2].contiguous())
+    blocked, ran = [], []
+    ctc.ctc_loss_cuda.launches = 0
+    n = len(tr.curriculum.stages[0][1])
+    for i in range(n):
+        lesson = tr.curriculum.get_lesson(i)
+        if "count" in lesson or "auto" in lesson:
+            blocked.append("+".join(lesson))   # need the char style encoder
+            continue
+        out = tr.run_lesson(lesson, itertools.repeat(data), iteration=i)
+        ran.append(("+".join(lesson), {k: float(v) for k, v in out.items()}))
+    torch.cuda.synchronize()
+    g_launches = ctc.ctc_loss_cuda.launches
+    print(f"32-px GAN cycle (B=4, small recognizer/generator/discriminator,"
+          f" '32' encoder, f32): ran {ran}; not run at 32 rows in either "
+          f"package (the char style encoder's trunk needs 64): {blocked}; "
+          f"ctc launches {g_launches}", flush=True)
+    gen = sum("gen" in name for name, _ in ran)
+    if g_launches != gen or not all(math.isfinite(v) for _, o in ran
+                                    for v in o.values()):
+        raise AssertionError("the 32-px GAN lessons failed")
+    gen_t = min(gcfg.model.max_gen_length, 6 * max(gcfg.data.label_buckets))
+    L = max(gcfg.data.label_buckets)
+    err = check_ctc(torch, ctc, gen_t, L, seed=183, batch=tg.B)
+    times = time_ctc(torch, tt, F, ctc, gen_t, L, card, batch=tg.B)
+    return row, ("32-px GAN genRecog", (tg.B, gen_t, L), g_launches, err,
+                 times)
+
+
+def _set_phase(model, on: bool) -> None:
+    """Switch the generator's vertical blocks between the phase-decomposed
+    and the sequential upsample conv (the same weights serve both)."""
+    for blk in model.generator.blocks:
+        blk.phase_upsample = on
+
+
+def phase_upsample_step(torch, tt, ge, card):
+    """18.4: ``phase_upsample`` at the paper's width: a 512-line bf16 render
+    through the epilogue kernel (9 launches), timed in turns against the
+    sequential generator on the same weights, and a float32 forward (B =
+    4) equal to the sequential one within ``F32_MAX_ABS_BOUND``.  Returns
+    the epilogue entry."""
+    from handwriting_line_generation_tpu_torch import bench
+    cfg = bench.paper_config()
+    cfg.generator.phase_upsample = True
+    session, labels, lens, styles = _session(torch, cfg, MAIN_BATCH)
+    _, launches = _render(torch, ge, session, labels, lens, styles, True)
+    rates = {False: [], True: []}
+    for phase in (False, True, True, False):
+        _set_phase(session.model, phase)
+        ms = bench.time_forward(session, labels, lens, styles, iters=10)
+        rates[phase].append(round(MAIN_BATCH * 1000.0 / ms, 1))
+    del session
+    cfg.compute_dtype = "float32"
+    session, labels, lens, styles = _session(torch, cfg, 4)
+    outs = {}
+    for phase in (False, True):
+        _set_phase(session.model, phase)
+        outs[phase], _ = _render(torch, ge, session, labels, lens, styles,
+                                 True)
+    e32 = (outs[True] - outs[False]).abs().max().item()
+    print(f"phase_upsample (paper width, bf16, {MAIN_BATCH} lines): "
+          f"{launches} epilogue launches; lines/s phase {rates[True]} "
+          f"against sequential {rates[False]} (alternated); f32 forward "
+          f"(B=4) phase vs sequential max abs {e32:.3e} (bound "
+          f"{F32_MAX_ABS_BOUND}) {card}", flush=True)
+    if launches != 9 or not e32 <= F32_MAX_ABS_BOUND:
+        raise AssertionError("phase_upsample disagrees with the sequential "
+                             "generator or missed the kernel")
+    return epilogue_row(torch, ge, tt, f"gen_epilogue (phase_upsample, "
+                        f"B={MAIN_BATCH} bf16)",
+                        epilogue_calls(t=bench.SPACED_LEN), MAIN_BATCH,
+                        torch.bfloat16, launches, card)
+
+
+def normalization_step(torch, tt, card):
+    """18.5: the "normalization" augmentation on a 64 x 1024 batch: the
+    card against the CPU (the skeleton's pixels equal, the image within
+    ``NORM_ATOL``), and its time on each."""
+    from handwriting_line_generation_tpu_torch.ops.augment import (
+        apply_augmentation, dequantize_image,
+    )
+    image, _, _, width = tt.batch(seed=5, device=DEVICE, n=NORM_LINES)
+    x = dequantize_image(image, width)
+    run = lambda t: apply_augmentation("normalization", t, None, None)[0]
+    gpu = run(x)
+    t0 = time.perf_counter()
+    cpu = run(x.cpu())
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    gpu_ms = tt.event_ms(lambda: run(x), iters=3, warmup=1)
+    err = (gpu.cpu() - cpu).abs().max().item()
+    same = float(((gpu.cpu() > -1.0) == (cpu > -1.0)).float().mean())
+    print(f"normalization augmentation ({NORM_LINES} x 64 x {tt.W}): card "
+          f"{gpu_ms:.2f} ms, CPU {cpu_ms:.1f} ms; card vs CPU max abs "
+          f"{err:.3e} (bound {NORM_ATOL}), stroke pixels agreeing "
+          f"{same:.6f} {card}", flush=True)
+    if not err <= NORM_ATOL or same != 1.0:
+        raise AssertionError("the normalization on the card disagrees with "
+                             "the CPU")
+
+
+def variants_phase(torch, np, tt, F, ctc, ge, HWRTrainer, load_config,
+                   card):
+    """Phase 18; returns (epilogue entries, CTC rows)."""
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    epi = [jax_checkpoint_step(torch, np, ge, tt, card)]
+    ctc_rows = crnn_step(torch, tt, F, ctc, HWRTrainer, load_config, card)
+    row, gan_row = gan32_step(torch, np, tt, F, ctc, ge, load_config, card)
+    epi.append(row)
+    ctc_rows.append(gan_row)
+    epi.append(phase_upsample_step(torch, tt, ge, card))
+    normalization_step(torch, tt, card)
+    torch.cuda.empty_cache()
+    print(f"phase 18: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return epi, ctc_rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2918,37 +3372,9 @@ def main():
     ms = bench.time_forward(session, labels, lens, styles, iters=10)
     print(f"forward {ms:.3f} ms per {MAIN_BATCH} lines: "
           f"{MAIN_BATCH * 1000.0 / ms:.1f} lines/s {card}", flush=True)
-    k_ms = p_ms = b_ms = 0.0
-    bound_by = "bytes"
-    for blk, c, h, w, blur in epilogue_calls():
-        args, bias = epilogue_inputs(torch, MAIN_BATCH, c, h, w,
-                                     torch.bfloat16, seed=blk)
-        max_err = max(max_err, check_epilogue(
-            torch, ge, args, blur, "bfloat16",
-            f"block {blk} B={MAIN_BATCH} C={c} H={h} W={w}", bias=bias))
-        t_k = tt.event_ms(lambda: ge.block_epilogue(
-            *args, apply_blur=blur, bias=bias), iters=20)
-        t_p = tt.event_ms(lambda: ge.block_epilogue_reference(
-            *args, apply_blur=blur, bias=bias), iters=3, warmup=1)
-        plan = ge.plan(args[0].shape, torch.bfloat16, blur)
-        n = MAIN_BATCH * h * w
-        nbytes = (2 * n * c + n + 2 * c + 2 * MAIN_BATCH * c) * 2
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = n * c * OPS_PER_ELEM[blur] / F32_OPS_PER_S * 1e3
-        if t_ops > t_bytes:
-            bound_by = "operations"
-        bound = max(t_bytes, t_ops)
-        k_ms, p_ms, b_ms = k_ms + t_k, p_ms + t_p, b_ms + bound
-        print(f"gen_epilogue block {blk} C={c} H={h} W={w} blur={blur} "
-              f"B={MAIN_BATCH} bf16: kernel {t_k:.4f} ms, plain {t_p:.4f} "
-              f"ms, bound {bound:.4f} ms ({nbytes / 1e9:.3f} GB), kernel / "
-              f"bound {t_k / bound:.2f}; y from {plan['y_from']} (cluster "
-              f"{plan['cluster']}, {plan['pixels_per_rank']} pixels per rank, "
-              f"{plan['threads']} threads, {plan['smem_bytes']} B shared) "
-              f"{card}", flush=True)
-        del args
-    print(f"gen_epilogue per forward (9 calls): kernel {k_ms:.4f} ms, plain "
-          f"{p_ms:.4f} ms, bound {b_ms:.4f} ms {card}")
+    main_row = epilogue_row(torch, ge, tt, "gen_epilogue",
+                            epilogue_calls(), MAIN_BATCH, torch.bfloat16,
+                            launches, card, max_err)
 
     # 6. CTC kernel vs plain (TF32 still off)
     ctc_err = 0.0
@@ -3043,7 +3469,14 @@ def main():
     # rimes3 through the spaced_loc cache, held against live alignment
     pipe_rows = pipeline_phase(torch, tt, F, ctc, card)
 
-    # 18. summary
+    # 18. every model variant and the JAX checkpoints: the committed JAX
+    # fixture rendered through the epilogue kernel, the CRNN and SmallCRNN
+    # through the CTC kernel, the 32-px family, phase_upsample and the
+    # normalization augmentation
+    var_epi, var_ctc = variants_phase(torch, np, tt, F, ctc, ge, HWRTrainer,
+                                      load_config, card)
+
+    # 19. summary
     print(smi)
     # the CTC kernel once per path that runs it: each entry's launches come
     # from that path's run, its times from that path's main bucket
@@ -3056,25 +3489,15 @@ def main():
          gan_t),
         ("GAN training run", (4,) + GAN_CTC_BUCKETS[0], run_launches,
          gan_err, gan_t)] + cli_rows + dist_rows + pipe_rows
-    print(json.dumps({"kernels": [{
-        "name": "gen_epilogue", "route": "cuda",
-        "source": "handwriting_line_generation_tpu_torch/csrc/gen_epilogue.cu",
-        "replaces": "handwriting_line_generation_tpu/ops/gen_epilogue.py:39",
-        "launches": launches, "max_abs_err": max_err, "ms": k_ms,
-        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": bound_by,
-        "library_ms": None}, {
-        "name": f"gen_epilogue (evaluation, B={EVAL_B_MAIN} T={EVAL_T[-1]} "
-                "float32)", "route": "cuda",
-        "source": "handwriting_line_generation_tpu_torch/csrc/gen_epilogue.cu",
-        "replaces": "handwriting_line_generation_tpu/ops/gen_epilogue.py:39",
-        **infer, "library_ms": None}] + [{
+    print(json.dumps({"kernels": [main_row, infer] + [{
         "name": f"ctc ({path}, B={b} T={t} L={lab})", "route": "cuda",
         "source": "handwriting_line_generation_tpu_torch/csrc/ctc.cu",
         "replaces": "handwriting_line_generation_tpu/ops/ctc_pallas.py:60",
         "launches": n, "max_abs_err": err, "ms": t_["ms"],
         "plain_ms": t_["plain_ms"], "bound_ms": t_["bound_ms"],
         "bound_by": t_["bound_by"], "library_ms": t_["library_ms"]}
-        for path, (b, t, lab), n, err, t_ in ctc_paths]}))
+        for path, (b, t, lab), n, err, t_ in ctc_paths + var_ctc]
+        + var_epi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,7 +5,8 @@
 the discriminator's ``spectral`` collection when given (each
 ``SNConv_<i>/u``, a buffer of the port's ``sn.<i>``); any other key
 raises.
-:func:`convert_hwr_params` converts a ``CNNOnlyHWR`` tree and
+:func:`convert_hwr_params` converts a recognizer tree (``CNNOnlyHWR``,
+``CRNN`` or ``SmallCRNN``) and
 :func:`convert_autoencoder_params` an ``Autoencoder`` tree.  Layout rules:
 
 * Dense ``[in, out]`` -> Linear ``[out, in]``.
@@ -19,11 +20,23 @@ raises.
   flipped.  So do the autoencoder's decoders' ``nn.ConvTranspose`` layers
   (strides 1 and 2), run by ``models.layers.conv_transpose``.
 * NoiseInjection ``[1, 1, 1, C]`` -> ``[C]``; GroupNorm ``scale`` -> weight.
+* A forward and a reversed ``OptimizedLSTMCell`` -> one ``BiLSTM``: the
+  input kernels ``ii/if/ig/io`` (no bias) and the recurrent ``hi/hf/hg/ho``
+  (with bias) concatenated in torch's (i, f, g, o) row order.
 * The style extractor's vmapped per-class extractors (and ``FillPred``)
   carry a leading class axis: each 1-D conv kernel ``[N, k, in, out]`` ->
   ``[N, out, in, k]``; dense kernels stay ``[N, in, out]``.
 
-bfloat16 leaves (``ml_dtypes``) convert exactly through float32.
+bfloat16 leaves (``ml_dtypes`` arrays, or the torch tensors of
+``utils/msgpack.py``) convert exactly through float32.
+
+A raw JAX checkpoint (``utils.checkpoint.load_raw_checkpoint``) is routed
+by its layout: :func:`convert_checkpoint` takes a GAN ``checkpoint-*`` (the
+whole train state: ``params`` and ``spectral``, the optimizer moments left
+behind), a ``model_best`` (``{params, spectral}``) or a bare ``<name>-swa``
+params tree; :func:`hwr_tree` the recognizer of a standalone HWR state or
+of a composite checkpoint, and :func:`encoder_tree` an autoencoder state's
+encoder.
 """
 
 from __future__ import annotations
@@ -34,8 +47,15 @@ import numpy as np
 import torch
 
 
+def _np(a) -> np.ndarray:
+    """A leaf as numpy: a ``torch.bfloat16`` leaf of ``utils/msgpack.py``
+    widens to float32 (exact)."""
+    return a.float().numpy() if isinstance(a, torch.Tensor) \
+        else np.asarray(a)
+
+
 def _tensor(a) -> torch.Tensor:
-    a = np.array(a)                  # a writable, contiguous copy
+    a = np.array(_np(a))             # a writable, contiguous copy
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
     return torch.from_numpy(a)
@@ -60,7 +80,7 @@ def _leaves(tree: Mapping, where: str, out: Dict[str, torch.Tensor],
         raise KeyError(f"{where}: expected keys {sorted(rules)}, got "
                        f"{sorted(tree)}")
     for name, (tname, fn) in rules.items():
-        out[prefix + tname] = _tensor(fn(np.asarray(tree[name])))
+        out[prefix + tname] = _tensor(fn(_np(tree[name])))
 
 
 def _ident(a):
@@ -267,8 +287,9 @@ def _convs_and_norms(tree: Mapping, where: str, out, p: str,
 
 
 def convert_hwr_params(params: Mapping) -> Dict[str, torch.Tensor]:
-    """flax ``CNNOnlyHWR`` params (with or without the outer ``"params"``
-    key) -> ``models.hwr.CNNOnlyHWR`` state_dict."""
+    """flax recognizer params (``CNNOnlyHWR``, ``CRNN`` or ``SmallCRNN``;
+    with or without the outer ``"params"`` key) -> the state_dict of the
+    ``models.hwr`` module of that kind."""
     if set(params) == {"params"}:
         params = params["params"]
     out: Dict[str, torch.Tensor] = {}
@@ -307,11 +328,113 @@ def convert_autoencoder_params(params: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
+_GATES = ("i", "f", "g", "o")            # torch's row order of the gates
+
+
+def _lstm_pair(fwd: Mapping, bwd: Mapping, where: str, out,
+               p: str) -> None:
+    """Two flax ``OptimizedLSTMCell``s (the forward and the reversed RNN)
+    -> a ``models.hwr.BiLSTM``: ``weight_ih[d]`` the ``ii/if/ig/io``
+    kernels ``[in, H]`` concatenated and transposed to ``[4H, in]``,
+    ``weight_hh[d]`` and ``bias_hh[d]`` those of ``hi/hf/hg/ho``."""
+    want = {f"{a}{g}" for a in "ih" for g in _GATES}
+    ih, hh, bh = [], [], []
+    for d, cell in enumerate((fwd, bwd)):
+        w = f"{where}[{d}]"
+        if set(cell) != want:
+            raise KeyError(f"{w}: expected keys {sorted(want)}, got "
+                           f"{sorted(cell)}")
+        for g in _GATES:
+            if set(cell["i" + g]) != {"kernel"} or \
+                    set(cell["h" + g]) != {"kernel", "bias"}:
+                raise KeyError(f"{w}: i{g} takes a kernel, h{g} a kernel "
+                               f"and a bias")
+        ih.append(np.concatenate([_np(cell["i" + g]["kernel"])
+                                  for g in _GATES], axis=1).T)
+        hh.append(np.concatenate([_np(cell["h" + g]["kernel"])
+                                  for g in _GATES], axis=1).T)
+        bh.append(np.concatenate([_np(cell["h" + g]["bias"])
+                                  for g in _GATES]))
+    for name, parts in (("weight_ih", ih), ("weight_hh", hh),
+                        ("bias_hh", bh)):
+        out[p + name] = _tensor(np.stack(parts))
+
+
+def _crnn_head(params: Mapping, where: str, out, p: str,
+               dense_names: Dict[int, str]) -> Dict:
+    """The LSTM pairs (``OptimizedLSTMCell_<2l>``, ``_<2l+1>`` ->
+    ``lstms.<l>``, or ``lstm`` when there is one pair) and the dense
+    layers (``Dense_<i>`` -> ``dense_names[i]``); returns the other
+    entries."""
+    cells = sorted(_index(k, "OptimizedLSTMCell_") for k in params
+                   if k.startswith("OptimizedLSTMCell_"))
+    if cells != list(range(len(cells))) or len(cells) % 2:
+        raise KeyError(f"{where}: LSTM cells {cells}, want pairs from 0")
+    for l in range(len(cells) // 2):
+        _lstm_pair(params[f"OptimizedLSTMCell_{2 * l}"],
+                   params[f"OptimizedLSTMCell_{2 * l + 1}"],
+                   f"{where}/OptimizedLSTMCell_{2 * l}+1", out,
+                   p + ("lstm." if len(cells) == 2 else f"lstms.{l}."))
+    rest = {}
+    for name, sub in params.items():
+        if name.startswith("Dense_"):
+            i = _index(name, "Dense_")
+            if i not in dense_names:
+                raise KeyError(f"{where}/{name}: unknown key")
+            _layer(sub, f"{where}/{name}", out, p + dense_names[i], _dense)
+        elif not name.startswith("OptimizedLSTMCell_"):
+            rest[name] = sub
+    return rest
+
+
 def _hwr(params: Mapping, out, p: str) -> None:
-    n_conv = sum(k.startswith("Conv_") for k in params)
-    head = {k: v for k, v in params.items() if k != "_ConvTrunk_0"}
+    """A ``CNNOnlyHWR``, ``CRNN`` (LSTM cells beside ``_ConvTrunk_0``) or
+    ``SmallCRNN`` (LSTM cells, no ``_ConvTrunk_0``) tree."""
+    lstm = "OptimizedLSTMCell_0" in params
+    if lstm and "_ConvTrunk_0" not in params:          # SmallCRNN
+        rest = _crnn_head(params, "hwr", out, p, {0: "out."})
+        _convs_and_norms(rest, "hwr", out, p)
+        return
     if "_ConvTrunk_0" not in params:
         raise KeyError("hwr: missing _ConvTrunk_0")
     _convs_and_norms(params["_ConvTrunk_0"], "hwr/_ConvTrunk_0", out,
                      p + "trunk.")
+    head = {k: v for k, v in params.items() if k != "_ConvTrunk_0"}
+    if lstm:                                           # CRNN
+        rest = _crnn_head(head, "hwr", out, p,
+                          {0: "denses.0.", 1: "denses.1.", 2: "out."})
+        if rest:
+            raise KeyError(f"hwr: unknown keys {sorted(rest)}")
+        return
+    n_conv = sum(k.startswith("Conv_") for k in params)
     _convs_and_norms(head, "hwr", out, p, last_conv=f"Conv_{n_conv - 1}")
+
+
+def convert_checkpoint(raw: Mapping) -> Dict[str, torch.Tensor]:
+    """The ``HWWithStyle`` state_dict of a raw JAX GAN checkpoint: a
+    ``checkpoint-*`` (the whole state) or a ``model_best`` gives its
+    ``params`` and ``spectral``; a bare params tree (``<name>-swa``) gives
+    the parameters alone.  Optimizer moments, saved gradients and the style
+    bank are not carried over."""
+    if "params" in raw:
+        return convert_params(raw["params"], raw.get("spectral") or None)
+    return convert_params(raw)
+
+
+def hwr_tree(raw: Mapping) -> Mapping:
+    """The recognizer tree of a raw JAX checkpoint, as the JAX GAN's
+    ``pretrained_hwr`` finds it: ``raw["params"]``, then its ``params``
+    (a standalone HWR state or ``model_best``), then its ``hwr`` (a
+    composite checkpoint)."""
+    tree = raw["params"]
+    if "params" in tree:
+        tree = tree["params"]
+    if "hwr" in tree:
+        tree = tree["hwr"]
+    return tree
+
+
+def encoder_tree(raw: Mapping) -> Mapping:
+    """The perceptual encoder tree of a raw JAX autoencoder state (or its
+    ``model_best``): ``raw["params"]["params"]["encoder"]``."""
+    return raw["params"]["params"]["encoder"]

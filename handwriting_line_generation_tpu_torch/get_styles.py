@@ -25,7 +25,8 @@ def build_parser() -> argparse.ArgumentParser:
         description="Extract the style bank of a trained model.")
     ap.add_argument("-c", "--config", required=True)
     ap.add_argument("-k", "--checkpoint", required=True,
-                    help="run directory holding checkpoint-latest.pt")
+                    help="run directory holding checkpoint-latest (.pt, or "
+                         "the JAX package's .msgpack)")
     ap.add_argument("-T", "--test", action="store_true",
                     help="use the test split instead of train/valid")
     ap.add_argument("-o", "--out-dir", default=None)

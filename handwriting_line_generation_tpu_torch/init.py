@@ -22,8 +22,9 @@ The generator and spacer draw first and the discriminator last, so each
 subtree's weights depend only on the subtrees drawn before it.
 
 :func:`init_model` loads it through :func:`convert.convert_params`.
-:func:`init_hwr_params` builds a ``CNNOnlyHWR`` tree the same way
-(lecun_normal conv kernels, zero biases, GroupNorm 1/0) and
+:func:`init_hwr_params` builds a recognizer tree the same way
+(lecun_normal conv, dense and LSTM input kernels, orthogonal LSTM
+recurrent kernels, zero biases, GroupNorm 1/0) and
 :func:`init_hwr` loads it through :func:`convert.convert_hwr_params`;
 :func:`init_autoencoder_params` and :func:`init_autoencoder` do the same
 for an ``Autoencoder``.
@@ -47,7 +48,8 @@ from handwriting_line_generation_tpu_torch.models.discriminator import \
 from handwriting_line_generation_tpu_torch.models.hw_with_style import \
     HWWithStyle
 from handwriting_line_generation_tpu_torch.models.hwr import (
-    DILATIONS, TRUNK_NORMED, TRUNK_WIDTHS, CNNOnlyHWR, build_hwr,
+    DILATIONS, SMALL_NORMED, SMALL_WIDTHS, TRUNK_NORMED, TRUNK_WIDTHS,
+    build_hwr,
 )
 
 # std of a unit normal truncated to [-2, 2]: flax divides by it
@@ -102,9 +104,11 @@ def init_params(cfg: ModelConfig, seed: int = 0) -> Dict:
             + cfg.char_cond_dim()
         gen = {"StyleMLP_0": {f"Dense_{i}": _layer(rng, (s, s))
                               for i in range(g.n_style_trans)}}
+        # small: the last block does not upsample (a 3x3 conv, then conv2,
+        # named as the nearest blocks' are)
         specs = [("initial", cin, d), ("nearest", d, d // 2),
                  ("nearest", d // 2, d // 4), ("fused", d // 4, d // 8),
-                 ("fused", d // 8, d // 16)]
+                 ("nearest" if g.small else "fused", d // 8, d // 16)]
         for i, (kind, ci, co) in enumerate(specs):
             gen[f"StyledConvBlock_{i}"] = _styled_block(rng, kind, ci, co, s)
         gen["EqualConv_0"] = _layer(rng, (1, 1, d // 16, 1), equal_lr=True)
@@ -250,14 +254,48 @@ def _norm(c: int) -> Dict[str, np.ndarray]:
 
 
 def init_hwr_params(hwr: HWRConfig, num_class: int, seed: int = 0) -> Dict:
-    """Flax-layout ``{"params": ...}`` numpy tree of a ``CNNOnlyHWR``."""
+    """Flax-layout ``{"params": ...}`` numpy tree of the recognizer
+    ``hwr.kind`` names (``cnn_only``, ``crnn``, ``small_crnn``; LSTMs of
+    the JAX package's default width, 512)."""
     return {"params": _hwr_tree(np.random.default_rng(seed), hwr, num_class)}
 
 
+def _orthogonal(rng: np.random.Generator, n: int) -> np.ndarray:
+    """flax's ``orthogonal()`` init of an ``[n, n]`` kernel: Q of a normal
+    matrix's QR, its columns' signs fixed by R's diagonal."""
+    q, r = np.linalg.qr(rng.standard_normal((n, n)))
+    return (q * np.sign(np.diag(r))).astype(np.float32)
+
+
+def _lstm_cell(rng, in_features: int, hidden: int) -> Dict:
+    """An ``OptimizedLSTMCell``: lecun_normal input kernels (no bias),
+    orthogonal recurrent kernels with zero biases."""
+    cell = {f"i{g}": {"kernel": _lecun(rng, (in_features, hidden))}
+            for g in "ifgo"}
+    cell.update({f"h{g}": {"kernel": _orthogonal(rng, hidden),
+                           "bias": np.zeros(hidden, np.float32)}
+                 for g in "ifgo"})
+    return cell
+
+
 def _hwr_tree(rng, hwr: HWRConfig, num_class: int) -> Dict:
-    if hwr.kind != "cnn_only":
-        raise NotImplementedError(f"init of hwr kind {hwr.kind!r}")
-    normed = hwr.norm != "none"
+    """A ``CNNOnlyHWR``, ``CRNN`` or ``SmallCRNN`` tree (``hwr.kind``);
+    LSTMs 512 wide, the width the JAX package's ``build_hwr`` gives."""
+    normed, hidden = hwr.norm != "none", 512
+    if hwr.kind == "small_crnn":
+        tree, cin, k = {}, 1, 0
+        for i, (f, n) in enumerate(zip(SMALL_WIDTHS, SMALL_NORMED)):
+            tree[f"Conv_{i}"] = _layer(rng, (3, 3, cin, f))
+            if n and normed:
+                tree[f"GroupNorm_{k}"] = _norm(f)
+                k += 1
+            cin = f
+        tree["OptimizedLSTMCell_0"] = _lstm_cell(rng, cin, hidden)
+        tree["OptimizedLSTMCell_1"] = _lstm_cell(rng, cin, hidden)
+        tree["Dense_0"] = _layer(rng, (2 * hidden, num_class))
+        return tree
+    if hwr.kind not in ("cnn_only", "crnn"):
+        raise ValueError(f"unknown hwr kind {hwr.kind!r}")
     trunk, cin, k = {}, 1, 0
     for i, (f, n) in enumerate(zip(TRUNK_WIDTHS, TRUNK_NORMED)):
         trunk[f"Conv_{i}"] = _layer(rng, (3, 3, cin, f))
@@ -266,6 +304,15 @@ def _hwr_tree(rng, hwr: HWRConfig, num_class: int) -> Dict:
             k += 1
         cin = f
     tree = {"_ConvTrunk_0": trunk}
+    if hwr.kind == "crnn":
+        for l in range(2):
+            for d in range(2):
+                tree[f"OptimizedLSTMCell_{2 * l + d}"] = _lstm_cell(
+                    rng, cin, hidden)
+            tree[f"Dense_{l}"] = _layer(rng, (2 * hidden, hidden))
+            cin = hidden
+        tree["Dense_2"] = _layer(rng, (hidden, num_class))
+        return tree
     for i in range(len(DILATIONS)):
         tree[f"Conv_{i}"] = _layer(rng, (3, 512, 512))
         if normed:
@@ -275,8 +322,9 @@ def _hwr_tree(rng, hwr: HWRConfig, num_class: int) -> Dict:
 
 
 def init_hwr(hwr: HWRConfig, num_class: int, seed: int = 0,
-             dtype: torch.dtype = torch.float32) -> CNNOnlyHWR:
-    """``CNNOnlyHWR`` on the CPU with seeded flax-distributed weights."""
+             dtype: torch.dtype = torch.float32) -> torch.nn.Module:
+    """The recognizer of ``hwr.kind`` on the CPU with seeded
+    flax-distributed weights."""
     model = build_hwr(hwr.kind, num_class, hwr.norm, hwr.small, hwr.pad,
                       dtype)
     model.load_state_dict(convert_hwr_params(

@@ -16,8 +16,20 @@ own; the last block's second conv, which feeds the deferred AdaIN, keeps
 its bias.  Activations stay in ``channels_last`` memory so the NHWC view
 the kernel takes is contiguous, without a copy.
 
-Inference only: dropout is the identity.  ``small`` and
-``phase_upsample`` are not ported.
+``small`` (the 32-px family's generator): the last block does not
+upsample, so it has no blur and the image is ``[B, 32, 2T, 1]``.
+``phase_upsample``: the vertical blocks' nearest x2 + conv runs as one
+conv on the source rows (:func:`models.layers.phase_upsample_conv`, the
+JAX package's ``_PhaseUpConv``); the fused blocks' transposed conv is the
+same either way.  Both keep the parameter names and shapes, so a checkpoint
+loads into either.
+
+The JAX package cannot build ``small``: its non-upsampling block names
+both convs ``Conv_0`` and flax refuses it (``NameInUseError``).  The port
+names that block's convs ``Conv_0`` and ``Conv_1`` in the flax layout
+(``convert.py``), as the nearest-upsample blocks do.
+
+Inference only: dropout is the identity.
 """
 
 from __future__ import annotations
@@ -30,7 +42,7 @@ from torch import nn
 
 from handwriting_line_generation_tpu_torch.models.layers import (
     AdaIN, EqualConv, FusedUpsample, NoiseInjection, blur3x3, conv, dense,
-    instance_stats, pixel_norm, upsample_nearest,
+    instance_stats, phase_upsample_conv, pixel_norm, upsample_nearest,
 )
 from handwriting_line_generation_tpu_torch.ops import rows
 from handwriting_line_generation_tpu_torch.ops.gen_epilogue import \
@@ -57,26 +69,27 @@ class StyledConvBlock(nn.Module):
     padding=((3, 3), (1, 1)))``, which does not flip its kernel: a plain
     correlation of the input padded by 3 rows and 1 column, so it is a
     ``conv2d`` here (H 1 -> 4, W kept).  ``upsample``: nearest x2 + 3x3
-    conv, or :class:`FusedUpsample` when ``fused``; then the 3x3 blur.
+    conv (:func:`phase_upsample_conv` when ``phase_upsample`` and
+    ``only_vertical``), or :class:`FusedUpsample` when ``fused``; then the
+    3x3 blur.  Neither: a 3x3 conv, no blur.
     """
 
     def __init__(self, in_ch: int, features: int, style_dim: int, *,
                  initial: bool = False, upsample: bool = False,
                  only_vertical: bool = False, fused: bool = False,
                  defer_final_adain: bool = False,
+                 phase_upsample: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.initial, self.upsample = initial, upsample
+        self.phase_upsample = phase_upsample
         self.only_vertical, self.fused = only_vertical, fused
         self.defer_final_adain = defer_final_adain
         self.dtype = dtype
         if initial:
             self.conv1 = nn.Conv2d(in_ch, features, (4, 3))
         elif upsample and fused:
-            if only_vertical:
-                raise NotImplementedError(
-                    "vertical-only FusedUpsample is not ported")
-            self.conv1 = FusedUpsample(in_ch, features)
+            self.conv1 = FusedUpsample(in_ch, features, only_vertical)
         else:
             self.conv1 = nn.Conv2d(in_ch, features, 3)
         self.noise1 = NoiseInjection(features)
@@ -114,6 +127,8 @@ class StyledConvBlock(nn.Module):
         elif self.upsample:
             if self.fused:
                 x = self.conv1(x, bias=bias1)
+            elif self.phase_upsample and self.only_vertical:
+                x = phase_upsample_conv(x, self.conv1, dt, bias=bias1)
             else:
                 scale = (2, 1) if self.only_vertical else (2, 2)
                 x = conv(upsample_nearest(x, scale), self.conv1, dt, 1,
@@ -158,7 +173,8 @@ class StyleMLP(nn.Module):
 
 class SpacedGenerator(nn.Module):
     """Spaced one-hot ``[B, T, C]`` + style ``[B, S]`` -> image
-    ``[B, 64, 4T, 1]`` (float32, tanh range).
+    ``[B, 64, 4T, 1]`` (``[B, 32, 2T, 1]`` when ``small``; float32, tanh
+    range).
 
     ``char_style_dim > 0`` also takes ``spaced_style [B, T, char_style_dim]``
     (``HWWithStyle.space_style``) and appends it to the content channels.
@@ -171,9 +187,6 @@ class SpacedGenerator(nn.Module):
                  phase_upsample: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if small or phase_upsample:
-            raise NotImplementedError(
-                "GeneratorConfig.small and phase_upsample are not ported")
         self.style_dim, self.append_style = style_dim, append_style
         self.char_style_dim = char_style_dim
         self.fused_epilogue = fused_epilogue
@@ -182,15 +195,16 @@ class SpacedGenerator(nn.Module):
         in_ch = num_class + (style_dim if append_style else 0) \
             + char_style_dim
         d = dim
-        blk = lambda *a, **kw: StyledConvBlock(*a, style_dim=style_dim,
-                                               dtype=dtype, **kw)
+        blk = lambda *a, **kw: StyledConvBlock(
+            *a, style_dim=style_dim, phase_upsample=phase_upsample,
+            dtype=dtype, **kw)
         self.blocks = nn.ModuleList([
             blk(in_ch, d, initial=True),                               # H4
             blk(d, d // 2, upsample=True, only_vertical=True),         # H8
             blk(d // 2, d // 4, upsample=True, only_vertical=True),    # H16
             blk(d // 4, d // 8, upsample=True, fused=True),        # H32 W2T
-            blk(d // 8, d // 16, upsample=True, fused=True,
-                defer_final_adain=True),                           # H64 W4T
+            blk(d // 8, d // 16, upsample=not small, fused=True,
+                defer_final_adain=True),               # H64 W4T (small: H32)
         ])
         self.to_gray = EqualConv(d // 16, 1, kernel=1)
 

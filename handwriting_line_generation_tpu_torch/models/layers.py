@@ -382,15 +382,23 @@ class FusedUpsample(nn.Module):
     stored ``[in, out, 3, 3]`` already flipped (``convert.py``), and the
     4-tap average, which commutes with the flip, is taken at run time.
 
-    The ``only_vertical`` variant (stride (2, 1), W pad (1, 2)) is not on
-    the paper path — the generator's vertical-only blocks upsample nearest
-    and convolve — and is not ported."""
+    ``only_vertical``: stride (2, 1), flax padding ((2, 2), (1, 2)), so H
+    doubles and W is kept.  The W padding is asymmetric, which
+    ``conv_transpose2d`` cannot express: it runs with flax's (2, 2) (torch
+    padding 1), one column wider, and the first column is cropped.
 
-    def __init__(self, in_ch: int, features: int):
+    The JAX layer's ``phase=True`` computes the same transposed conv by
+    phase decomposition (a dense conv for the TPU's matrix unit, equal up
+    to float association).  cuDNN's transposed conv reads no inserted
+    zeros, so the port has one form for both."""
+
+    def __init__(self, in_ch: int, features: int,
+                 only_vertical: bool = False):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(in_ch, features, 3, 3))
         self.bias = nn.Parameter(torch.zeros(features))
         self.mult = math.sqrt(2.0 / (in_ch * 9))
+        self.only_vertical = only_vertical
 
     def forward(self, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
         """``bias=False`` leaves the bias out, for a caller that adds it
@@ -398,6 +406,32 @@ class FusedUpsample(nn.Module):
         wp = F.pad(self.weight * self.mult, (1, 1, 1, 1))
         w4 = (wp[:, :, 1:, 1:] + wp[:, :, :-1, 1:] + wp[:, :, 1:, :-1]
               + wp[:, :, :-1, :-1]) / 4.0
-        return F.conv_transpose2d(x, w4.to(x.dtype),
-                                  self.bias.to(x.dtype) if bias else None,
-                                  stride=2, padding=1)
+        b = self.bias.to(x.dtype) if bias else None
+        if not self.only_vertical:
+            return F.conv_transpose2d(x, w4.to(x.dtype), b, stride=2,
+                                      padding=1)
+        y = F.conv_transpose2d(x, w4.to(x.dtype), None, stride=(2, 1),
+                               padding=1)[..., 1:]
+        return y if b is None else y + b[:, None, None]
+
+
+def phase_upsample_conv(x: torch.Tensor, layer: nn.Conv2d,
+                        dtype: torch.dtype, bias: bool = True
+                        ) -> torch.Tensor:
+    """``conv(upsample_nearest(x, (2, 1)), layer, padding=1)`` without the
+    upsampled tensor (the JAX package's ``_PhaseUpConv``): each output row
+    of the 3x3 conv reads two source rows, ``y[2a] = w0 x[a-1] + (w1 + w2)
+    x[a]`` and ``y[2a+1] = (w0 + w1) x[a] + w2 x[a+1]``, so one conv with a
+    ``[2C, Cin, 2, 3]`` kernel (the two phases' taps, summed in float32)
+    on the source padded by one row and column gives both phases, which
+    interleave back by a reshape.  ``bias=False`` leaves the bias out."""
+    B, _, H, W = x.shape
+    w = layer.weight.float()                       # [C, Cin, 3, 3]
+    C = w.shape[0]
+    even = torch.stack([w[:, :, 0], w[:, :, 1] + w[:, :, 2]], dim=2)
+    odd = torch.stack([w[:, :, 0] + w[:, :, 1], w[:, :, 2]], dim=2)
+    wk = torch.cat([even, odd]).to(dtype)          # [2C, Cin, 2, 3]
+    full = F.conv2d(F.pad(x.to(dtype), (1, 1, 1, 1)), wk)   # [B,2C,H+1,W]
+    y = torch.stack([full[:, :C, :H], full[:, C:, 1:]], dim=3)
+    y = y.reshape(B, C, 2 * H, W)
+    return y + layer.bias.to(dtype)[:, None, None] if bias else y

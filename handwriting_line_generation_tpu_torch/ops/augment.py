@@ -11,14 +11,21 @@ Counterpart of the ``"warp"`` and ``"affine"`` kinds of
   horizontal stretch, by inverse bilinear sampling;
 * :func:`dequantize_image` — u8 pixels to the normalized range on the
   device, and :func:`quantize_image_u8` (numpy) back;
-* :func:`fg_to_float` — a bool foreground mask to float32 on the device.
+* :func:`fg_to_float` — a bool foreground mask to float32 on the device;
+* the ``"normalization"`` kind: :func:`deskew` (the slant that maximizes
+  the variance of the column profile, among 31 candidate shears at once),
+  then :func:`normalize_line` (Otsu, :func:`skeletonize` — Zhang-Suen
+  thinning by neighbour shifts, 16 iterations —, a cross dilation and a
+  3x3 box blur);
+* :func:`change_thickness` — ink dilated or eroded by a per-sample radius,
+  shaded, blurred and noised (no kind of the dispatch reaches it, in
+  either package).
 
 Images are normalized (``1 - px/128``: background -1, ink ~ +1), NHWC
 ``[B, H, W, 1]``, as in the JAX package.  Every random function takes a
 ``torch.Generator`` or its draws as tensors (``shifts=``, ``offsets=``,
-``skew=``/``stretch=``), so tests can inject the JAX package's draws.  The
-``"normalization"`` kind (deskew, skeletonize) and ``change_thickness`` are
-not ported yet.
+``skew=``/``stretch=``, ``noise=``), so tests can inject the JAX package's
+draws.
 """
 
 from __future__ import annotations
@@ -150,6 +157,116 @@ def grid_warp(img: torch.Tensor, generator: Optional[torch.Generator] = None,
     return _bilinear_sample(img[..., 0], ys, xs, fill)[..., None]
 
 
+def change_thickness(img: torch.Tensor, size: torch.Tensor,
+                     fg_shade: torch.Tensor, bg_shade: torch.Tensor,
+                     generator: Optional[torch.Generator] = None,
+                     blur_size: int = 3, noise_sigma: float = 0.02,
+                     noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Stroke thickness and shade: each image's Otsu ink (``[B]`` ``size``
+    in [-4, 4]: > 0 dilates by a square of radius ``size``, < 0 erodes),
+    painted ``fg_shade`` on ``bg_shade`` (``[B]``, in [0, 1]), a
+    ``blur_size`` box blur, plus ``noise_sigma`` times ``noise`` (``[B, H,
+    W, 1]`` standard normals, drawn from ``generator`` when None), clipped
+    to [0, 1] and mapped to [-1, 1]."""
+    B = img.shape[0]
+    if noise is None:
+        noise = rows.randn(img.shape, generator, device=img.device)
+    u8 = _to_u8_scale(img)
+    th = otsu_threshold(u8)
+    ink = (u8 <= th[:, None, None, None]).float().permute(0, 3, 1, 2)
+    sz = size.to(img.device).reshape(B, 1, 1, 1)
+    r = sz.abs()
+    grown, shrunk = ink, ink
+    for radius in (1, 2, 3, 4):
+        k = 2 * radius + 1
+        grown = torch.where((sz > 0) & (r >= radius),
+                            F.max_pool2d(ink, k, 1, radius), grown)
+        shrunk = torch.where((sz < 0) & (r >= radius),
+                             -F.max_pool2d(-ink, k, 1, radius), shrunk)
+    out = torch.where(sz > 0, grown, torch.where(sz < 0, shrunk, ink))
+    fg = fg_shade.to(img.device).reshape(B, 1, 1, 1)
+    bg = bg_shade.to(img.device).reshape(B, 1, 1, 1)
+    out = out * (fg - bg) + bg
+    box = torch.full((1, 1, blur_size, blur_size), 1.0 / blur_size ** 2,
+                     device=img.device)
+    out = F.conv2d(out, box, padding=blur_size // 2).permute(0, 2, 3, 1)
+    out = out + noise_sigma * noise
+    return torch.clamp(out, 0.0, 1.0) * 2.0 - 1.0
+
+
+def deskew(img: torch.Tensor, n_angles: int = 31, max_slant: float = 1.0,
+           fill: float = -1.0) -> torch.Tensor:
+    """Remove each image's slant: among ``n_angles`` shears ``m`` in
+    [-max_slant, max_slant] about mid-height, the one whose sheared ink
+    (the positive part, out-of-image taps 0) has the largest variance of
+    its column sums (the first on ties), applied to the image (taps
+    outside it read ``fill``)."""
+    B, H, W, _ = img.shape
+    ys, xs = _grid(H, W, img.device)
+    ys, xs = ys.expand(B, H, W), xs.expand(B, H, W)
+    ink = torch.clamp(img[..., 0], min=0.0)
+    slants = torch.linspace(-max_slant, max_slant, n_angles,
+                            device=img.device)
+    var = torch.stack([
+        _bilinear_sample(ink, ys, xs - m * (H / 2 - ys), 0.0).sum(1)
+        .var(dim=1, unbiased=False) for m in slants], dim=1)   # [B, A]
+    best = slants[torch.argmax(var, dim=1)][:, None, None]
+    return _bilinear_sample(img[..., 0], ys, xs - best * (H / 2 - ys),
+                            fill)[..., None]
+
+
+def _shift2d(m: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
+    """Zero-border shift of ``[B, H, W]``: ``out[y, x] = m[y + dy, x +
+    dx]``."""
+    _, H, W = m.shape
+    p = F.pad(m, (1, 1, 1, 1))
+    return p[:, 1 + dy:1 + dy + H, 1 + dx:1 + dx + W]
+
+
+def skeletonize(ink: torch.Tensor, iters: int = 16) -> torch.Tensor:
+    """Zhang-Suen thinning of a ``[B, H, W]`` {0, 1} map: ``iters``
+    iterations of its two sub-passes, each deleting, all at once, the ink
+    pixels with 2-6 ink neighbours, one 0 -> 1 transition around them, and
+    the sub-pass's two products of neighbours zero.  Returns int32."""
+    im = ink.to(torch.int32)
+
+    def sub(im, phase):
+        # neighbours clockwise from north: P2..P9 (Zhang-Suen numbering)
+        P = [_shift2d(im, -1, 0), _shift2d(im, -1, 1), _shift2d(im, 0, 1),
+             _shift2d(im, 1, 1), _shift2d(im, 1, 0), _shift2d(im, 1, -1),
+             _shift2d(im, 0, -1), _shift2d(im, -1, -1)]
+        n = sum(P)
+        seq = P + [P[0]]
+        a = sum(((seq[i] == 0) & (seq[i + 1] == 1)).to(torch.int32)
+                for i in range(8))
+        cond = (im == 1) & (n >= 2) & (n <= 6) & (a == 1)
+        if phase == 0:
+            cond &= (P[0] * P[2] * P[4] == 0) & (P[2] * P[4] * P[6] == 0)
+        else:
+            cond &= (P[0] * P[2] * P[6] == 0) & (P[0] * P[4] * P[6] == 0)
+        return im * (1 - cond.to(torch.int32))
+
+    for _ in range(iters):
+        im = sub(sub(im, 0), 1)
+    return im
+
+
+def normalize_line(img: torch.Tensor) -> torch.Tensor:
+    """Strokes to a uniform thickness: each image's Otsu ink, thinned to a
+    skeleton, dilated by a 3x3 cross, clipped to 1, box-blurred 3x3, mapped
+    to [-1, 1] (ink +1)."""
+    u8 = _to_u8_scale(img)
+    th = otsu_threshold(u8)
+    ink = (u8[..., 0] <= th[:, None, None]).to(torch.int32)
+    sk = skeletonize(ink).float()[:, None]
+    cross = torch.tensor([[0., 1., 0.], [1., 1., 1.], [0., 1., 0.]],
+                         device=img.device)
+    d = torch.clamp(F.conv2d(sk, cross[None, None], padding=1), 0.0, 1.0)
+    box = torch.full((1, 1, 3, 3), 1.0 / 9.0, device=img.device)
+    out = F.conv2d(d, box, padding=1).permute(0, 2, 3, 1)
+    return out * 2.0 - 1.0
+
+
 def apply_augmentation(kind: Union[str, bool, None], img: torch.Tensor,
                        fg_mask: Optional[torch.Tensor],
                        generator: Optional[torch.Generator],
@@ -160,9 +277,10 @@ def apply_augmentation(kind: Union[str, bool, None], img: torch.Tensor,
                                   torch.Tensor]:
     """Dispatch per ``DataConfig.augmentation``.  Returns ``(image, fg_mask,
     width_scale)``: ``"affine"`` shares one (skew, stretch) draw across the
-    batch and reports the stretch; any other non-empty kind but
-    ``"normalization"`` is brightness + warp, as is ``True``, which
-    reference configs use to mean it.
+    batch and reports the stretch; ``"normalization"`` deskews and
+    normalizes the strokes (no draws); any other non-empty kind is
+    brightness + warp, as is ``True``, which reference configs use to mean
+    it.
 
     ``draws``: precomputed random draws in place of ``generator``'s, as
     tests inject the JAX package's: ``"stretch"`` and ``"skew"`` (scalars)
@@ -173,9 +291,7 @@ def apply_augmentation(kind: Union[str, bool, None], img: torch.Tensor,
     if not kind:
         return img, fg_mask, one
     if isinstance(kind, str) and "normalization" in kind:
-        raise NotImplementedError(
-            "the 'normalization' augmentation (deskew + skeleton) is not "
-            "ported yet (ROADMAP.md Queue 1 item 4)")
+        return normalize_line(deskew(img)), fg_mask, one
     B = img.shape[0]
     if isinstance(kind, str) and "affine" in kind:
         if "stretch" in d:

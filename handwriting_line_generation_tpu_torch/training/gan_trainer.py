@@ -87,7 +87,10 @@ from handwriting_line_generation_tpu_torch.charset import (
     collapse_argmax_batch, ctc_greedy_decode_batch, get_charset,
 )
 from handwriting_line_generation_tpu_torch.config import Config
-from handwriting_line_generation_tpu_torch.convert import convert_params
+from handwriting_line_generation_tpu_torch.convert import (
+    convert_autoencoder_params, convert_hwr_params, convert_params,
+    encoder_tree, hwr_tree,
+)
 from handwriting_line_generation_tpu_torch.data.text_data import TextSampler
 from handwriting_line_generation_tpu_torch.device import resolve_device
 from handwriting_line_generation_tpu_torch.inference.generate import \
@@ -126,8 +129,10 @@ from handwriting_line_generation_tpu_torch.training.train_state import (
     GanTrainState, balance_and_merge, bank_push, bank_sample,
     create_gan_state, global_norm, multipliers_at, swa_update,
 )
+from handwriting_line_generation_tpu_torch.utils import msgpack
 from handwriting_line_generation_tpu_torch.utils.checkpoint import (
-    checkpoint_exists, extract_subtree, load_checkpoint, load_meta,
+    checkpoint_exists, checkpoint_file, extract_subtree, load_checkpoint,
+    load_meta,
 )
 from handwriting_line_generation_tpu_torch.utils.error_rates import \
     batch_cer_wer
@@ -173,9 +178,8 @@ def resolve_text_data(path: Optional[str], root: str = REPO_ROOT
 
 def _load_model_state(path: str) -> Dict[str, torch.Tensor]:
     """The model state_dict of a port trainer's checkpoint (``.pt``)."""
-    if not path.endswith(".pt"):
-        path += ".pt"
     return torch.load(path, map_location="cpu", weights_only=True)["model"]
+
 
 
 def _grads(outputs, params, grad_outputs, retain_graph: bool
@@ -266,9 +270,10 @@ class GanTrainer(CheckpointedTrainer):
                    encoder_state: Optional[Mapping] = None) -> GanTrainState:
         """Seeded weights (or flax ``params`` and ``spectral`` trees), the
         pretrained recognizer of ``model.pretrained_hwr`` (a port
-        ``HWRTrainer`` checkpoint), the frozen perceptual encoder (from
-        ``encoder_state``, else ``trainer.encoder_weights``, a port
-        ``AutoTrainer`` checkpoint, when the file exists, else seeded), the
+        ``HWRTrainer`` checkpoint or a JAX ``.msgpack``), the frozen
+        perceptual encoder (from ``encoder_state``, else
+        ``trainer.encoder_weights``, a port ``AutoTrainer`` checkpoint or a
+        JAX ``.msgpack``, when the file exists, else seeded), the
         optimizers and a generator seeded with ``seed + 1``."""
         c = self.cfg
         model = HWWithStyle(c.model)
@@ -285,7 +290,7 @@ class GanTrainer(CheckpointedTrainer):
         ep = c.trainer.encoder_weights
         if encoder_state is not None:
             self.encoder.load_state_dict(encoder_state)
-        elif ep and os.path.exists(ep if ep.endswith(".pt") else ep + ".pt"):
+        elif ep and os.path.exists(checkpoint_file(ep)):
             self.load_encoder_weights(ep)
         self.encoder = self.encoder.to(self.device).requires_grad_(False)
         self.state = create_gan_state(
@@ -297,12 +302,18 @@ class GanTrainer(CheckpointedTrainer):
 
     @staticmethod
     def load_pretrained_hwr(model: HWWithStyle, path: str) -> None:
-        """The recognizer's weights from a port checkpoint: an
-        ``HWRTrainer``'s (the model is the recognizer) or a composite one's
-        ``hwr.*`` entries; its submodules must be the model's."""
-        sd = _load_model_state(path)
-        if any(k.startswith("hwr.") for k in sd):
-            sd = extract_subtree(sd, "hwr")
+        """The recognizer's weights from a port checkpoint (an
+        ``HWRTrainer``'s, the model being the recognizer, or a composite
+        one's ``hwr.*`` entries) or a JAX one (``.msgpack``: a standalone
+        HWR state's tree or a composite checkpoint's ``hwr`` subtree, as
+        the JAX GAN finds them); its submodules must be the model's."""
+        path = checkpoint_file(path)
+        if path.endswith(".msgpack"):
+            sd = convert_hwr_params(hwr_tree(msgpack.read(path)))
+        else:
+            sd = _load_model_state(path)
+            if any(k.startswith("hwr.") for k in sd):
+                sd = extract_subtree(sd, "hwr")
         expect = {k.split(".")[0] for k in model.hwr.state_dict()}
         got = {k.split(".")[0] for k in sd}
         if expect != got:
@@ -313,9 +324,15 @@ class GanTrainer(CheckpointedTrainer):
 
     def load_encoder_weights(self, path: str) -> None:
         """The perceptual encoder from an ``AutoTrainer`` checkpoint's
-        ``encoder.*`` entries."""
-        self.encoder.load_state_dict(
-            extract_subtree(_load_model_state(path), "encoder"))
+        ``encoder.*`` entries, or a JAX autoencoder state's
+        (``.msgpack``) ``encoder`` subtree."""
+        path = checkpoint_file(path)
+        if path.endswith(".msgpack"):
+            sd = convert_autoencoder_params(
+                {"encoder": encoder_tree(msgpack.read(path))})
+        else:
+            sd = _load_model_state(path)
+        self.encoder.load_state_dict(extract_subtree(sd, "encoder"))
 
     # -- shared pieces -----------------------------------------------------
 

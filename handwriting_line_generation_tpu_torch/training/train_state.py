@@ -239,24 +239,35 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], cfg: OptimConfig,
 # GAN: partitions and optimizers
 # ---------------------------------------------------------------------------
 
-PARTITIONS = ("main", "disc", "frozen")
+PARTITIONS = ("main", "slow", "disc", "frozen")
+SLOW_LR_SCALE = 0.1                 # the ``slow`` partition's rate, x lr
 
 
-def partition_label(name: str, *, hwr_frozen: bool) -> str:
-    """Group of one parameter by its name (``/``- or ``.``-joined path):
-    ``disc`` for the discriminator, ``frozen`` for a frozen recognizer,
-    else ``main``."""
+def partition_label(name: str, *, hwr_frozen: bool,
+                    style_frozen: bool = False,
+                    slow_names: Sequence[str] = ()) -> str:
+    """Group of one parameter by its name (``/``- or ``.``-joined path),
+    by the reference's substring rules in this order: ``slow`` when a
+    ``slow_names`` entry is in it, ``disc`` for the discriminator,
+    ``frozen`` for a frozen recognizer or style extractor, else ``main``."""
+    if any(sp in name for sp in slow_names):
+        return "slow"
     if "discriminator" in name:
         return "disc"
     if "hwr" in name and hwr_frozen:
         return "frozen"
+    if "style_extractor" in name and style_frozen:
+        return "frozen"
     return "main"
 
 
-def partition_params(names: Iterable[str], *, hwr_frozen: bool
-                     ) -> List[str]:
+def partition_params(names: Iterable[str], *, hwr_frozen: bool,
+                     style_frozen: bool = False,
+                     slow_names: Sequence[str] = ()) -> List[str]:
     """The partition of each parameter name, in order."""
-    return [partition_label(n, hwr_frozen=hwr_frozen) for n in names]
+    return [partition_label(n, hwr_frozen=hwr_frozen,
+                            style_frozen=style_frozen, slow_names=slow_names)
+            for n in names]
 
 
 class PartitionAdam:
@@ -312,10 +323,12 @@ def make_optimizers(params: Sequence[nn.Parameter], labels: Sequence[str],
                     opt_cfg: OptimConfig, disc_cfg: OptimConfig,
                     grad_clip: float = 2.0, total_iters: int = 175_000,
                     shard=None) -> Tuple[PartitionAdam, PartitionAdam]:
-    """(main, disc): main steps ``main``, disc steps ``disc``; ``frozen``
+    """(main, disc): main steps ``main``, and ``slow`` at
+    :data:`SLOW_LR_SCALE` times its rate; disc steps ``disc``; ``frozen``
     is never stepped."""
-    main = PartitionAdam(params, labels, {"main": 1.0}, opt_cfg, grad_clip,
-                         total_iters, shard)
+    main = PartitionAdam(params, labels,
+                         {"main": 1.0, "slow": SLOW_LR_SCALE}, opt_cfg,
+                         grad_clip, total_iters, shard)
     disc = PartitionAdam(params, labels, {"disc": 1.0}, disc_cfg, grad_clip,
                          total_iters, shard)
     return main, disc

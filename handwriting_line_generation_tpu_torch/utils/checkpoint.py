@@ -14,8 +14,13 @@ objects (the GAN's SWA weights) go beside each as ``<name>-<key>``.
 by key prefix (``encoder`` out of an autoencoder's model) and
 :func:`graft_subtree` puts them back, the roles the JAX package's
 ``extract_subtree`` and ``graft_subtree`` play on nested param dicts;
-:func:`param_summary` counts parameters by top-level submodule.  JAX
-``.msgpack`` checkpoints are not read here.
+:func:`param_summary` counts parameters by top-level submodule.
+
+The JAX package's checkpoints are flax msgpack, ``<name>.msgpack`` beside
+the same ``<name>.json``: :func:`load_raw_checkpoint` reads one as nested
+dicts of arrays (``utils/msgpack.py``, no ``msgpack`` package), as the JAX
+package's ``load_raw_checkpoint`` does, and :func:`checkpoint_file` picks
+the ``.pt`` or the ``.msgpack`` file of a name.
 
 Multi-process runs: only rank 0 writes (:func:`save_checkpoint` does
 nothing elsewhere), every rank builds the checkpoint (a sharded Adam
@@ -87,6 +92,29 @@ def load_meta(directory: str, name: str) -> Dict:
 
 def checkpoint_exists(directory: str, name: str) -> bool:
     return os.path.exists(_path(directory, name))
+
+
+def load_raw_checkpoint(directory: str, name: str) -> Any:
+    """A JAX checkpoint ``<directory>/<name>.msgpack`` as flax's
+    ``msgpack_restore`` gives it: nested dicts of numpy arrays
+    (``bfloat16`` leaves as torch tensors)."""
+    from handwriting_line_generation_tpu_torch.utils import msgpack
+    return msgpack.read(os.path.join(directory, name + ".msgpack"))
+
+
+def checkpoint_file(path: str) -> str:
+    """``path`` if it names a ``.pt`` or ``.msgpack`` file, else whichever
+    of ``path.pt`` (the port's) and ``path.msgpack`` (the JAX package's)
+    exists (``path.pt`` when neither does); both existing is refused, as
+    the two might hold different weights."""
+    if path.endswith((".pt", ".msgpack")):
+        return path
+    found = [path + ext for ext in (".pt", ".msgpack")
+             if os.path.exists(path + ext)]
+    if len(found) == 2:
+        raise ValueError(f"both {found[0]} and {found[1]} exist; remove "
+                         f"one, or name the file with its extension")
+    return found[0] if found else path + ".pt"
 
 
 def extract_subtree(state_dict: Dict[str, torch.Tensor], prefix: str

@@ -1,6 +1,7 @@
 """PNG on ``zlib``: an 8-bit grayscale writer for the GAN's sample strips,
-and a reader that decodes any non-interlaced PNG to 8-bit grey as
-``cv2.imread(path, 0)`` does (the port uses neither OpenCV nor PIL)."""
+and a reader that decodes any PNG, interlaced (Adam7) or not, to 8-bit
+grey as ``cv2.imread(path, 0)`` does (the port uses neither OpenCV nor
+PIL)."""
 
 from __future__ import annotations
 
@@ -16,6 +17,9 @@ _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}      # colour type -> samples
 # grayscale decode makes: 15-bit fixed-point weights, blue the remainder
 _RED, _GREEN = 29900 * 32768 // 100000, 58700 * 32768 // 100000
 _BLUE = 32768 - _RED - _GREEN
+# Adam7's seven passes: (first row, first column, row step, column step)
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+          (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
 
 
 def _chunk(tag: bytes, data: bytes) -> bytes:
@@ -90,14 +94,44 @@ def _unpack_bits(rows: np.ndarray, depth: int, samples: int) -> np.ndarray:
     return (bits * weights).sum(axis=2, dtype=np.uint8)
 
 
+def _pass_samples(flat: np.ndarray, pos: int, W: int, H: int, depth: int,
+                  ch: int, path: str):
+    """Unfilter one (sub-)image of ``H`` rows of ``W`` pixels starting at
+    byte ``pos`` of the inflated stream: ``([H, W, ch]`` int64 samples,
+    the position after it)."""
+    bits = depth * ch
+    row_bytes = (W * bits + 7) // 8
+    bpp = max(1, bits // 8)
+    end = pos + H * (row_bytes + 1)
+    if end > flat.size:
+        raise ValueError(f"{path}: image data is short")
+    block = flat[pos:end].reshape(H, row_bytes + 1)
+    filters = block[:, 0]
+    if filters.max(initial=0) > 4:
+        raise ValueError(f"{path}: bad filter type {filters.max()}")
+    raw = block[:, 1:].reshape(H, row_bytes // bpp, bpp)
+    unfilter = (_unfilter_rows if filters.max(initial=0) <= 2
+                else _unfilter_wavefront)
+    rows = unfilter(raw, filters).reshape(H, row_bytes)
+    if depth == 16:
+        px = rows.view(">u2").astype(np.int64).reshape(H, W, ch)
+    elif depth == 8:
+        px = rows.astype(np.int64).reshape(H, W, ch)
+    else:
+        px = _unpack_bits(rows, depth, W * ch).astype(np.int64)
+        px = px.reshape(H, W, ch)
+    return px, end
+
+
 def read_png_gray(path: str) -> np.ndarray:
     """The pixels ``[H, W]`` uint8 of a PNG, as ``cv2.imread(path, 0)``
-    gives them: every filter type, bit depths 1-16 and colour types
-    0/2/3/4/6; alpha dropped (not composited); 1/2/4-bit grey scaled to
+    gives them: every filter type, bit depths 1-16, colour types 0/2/3/4/6
+    and Adam7 interlacing (each pass unfiltered on its own, then scattered
+    into place); alpha dropped (not composited); 1/2/4-bit grey scaled to
     0..255; colour to grey with libpng's fixed-point 0.299/0.587 weights (a
     grey pixel, R = G = B, kept as it is; 8-bit rounds down, 16-bit rounds
-    to nearest); 16 bits to 8 by the high byte, after the grey conversion.
-    Interlaced (Adam7) files raise ``ValueError``."""
+    to nearest); 16 bits to 8 by the high byte, after the grey
+    conversion."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _SIGNATURE:
@@ -118,32 +152,22 @@ def read_png_gray(path: str) -> np.ndarray:
     if header is None:
         raise ValueError(f"{path}: no IHDR chunk")
     W, H, depth, color, _, _, interlace = header
-    if interlace:
-        raise ValueError(f"{path}: interlaced (Adam7) PNGs are not "
-                         f"supported")
     if color not in _CHANNELS:
         raise ValueError(f"{path}: unknown colour type {color}")
+    if interlace not in (0, 1):
+        raise ValueError(f"{path}: unknown interlace method {interlace}")
     ch = _CHANNELS[color]
-    bits = depth * ch
-    row_bytes = (W * bits + 7) // 8
-    bpp = max(1, bits // 8)
     flat = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    flat = flat[:H * (row_bytes + 1)].reshape(H, row_bytes + 1)
-    filters = flat[:, 0]
-    if filters.max(initial=0) > 4:
-        raise ValueError(f"{path}: bad filter type {filters.max()}")
-    raw = flat[:, 1:].reshape(H, row_bytes // bpp, bpp)
-    unfilter = (_unfilter_rows if filters.max(initial=0) <= 2
-                else _unfilter_wavefront)
-    rows = unfilter(raw, filters).reshape(H, row_bytes)
-
-    if depth == 16:
-        px = rows.view(">u2").astype(np.int64).reshape(H, W, ch)
-    elif depth == 8:
-        px = rows.astype(np.int64).reshape(H, W, ch)
+    if interlace == 0:
+        px, _ = _pass_samples(flat, 0, W, H, depth, ch, path)
     else:
-        px = _unpack_bits(rows, depth, W * ch).astype(np.int64)
-        px = px.reshape(H, W, ch)
+        px, at = np.zeros((H, W, ch), np.int64), 0
+        for y0, x0, dy, dx in _ADAM7:
+            h, w = -(-(H - y0) // dy), -(-(W - x0) // dx)
+            if h > 0 and w > 0:              # an empty pass has no bytes
+                sub, at = _pass_samples(flat, at, w, h, depth, ch, path)
+                px[y0::dy, x0::dx] = sub
+
     if color == 3:
         if palette is None:
             raise ValueError(f"{path}: palette image without PLTE")

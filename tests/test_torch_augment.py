@@ -117,8 +117,11 @@ def test_apply_augmentation_kinds(kind):
         assert float(scale) == 1.0
     if kind is None:
         assert out is img
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.apply_augmentation("normalization", img, None, g)
+    # "normalization" (ported since; held against JAX in
+    # tests/test_torch_leftovers.py) takes no draws and keeps the mask
+    out, mask, scale = P.apply_augmentation("normalization", img, None, g)
+    assert out.shape == img.shape and torch.isfinite(out).all()
+    assert mask is None and float(scale) == 1.0
 
 
 def test_apply_augmentation_true_is_warp():

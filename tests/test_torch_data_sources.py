@@ -168,9 +168,11 @@ def test_read_png_matches_cv2_on_every_format(tmp_path, ctype, depth):
 
 
 def test_read_png_refuses_interlaced(tmp_path):
+    """Adam7 (method 1) decodes (``tests/test_torch_leftovers.py``); an
+    interlace method PNG does not define is refused."""
     path = tmp_path / "i.png"
-    path.write_bytes(_png(np.zeros((4, 4, 1), np.int64), 8, 0, interlace=1))
-    with pytest.raises(ValueError, match="interlaced"):
+    path.write_bytes(_png(np.zeros((4, 4, 1), np.int64), 8, 0, interlace=2))
+    with pytest.raises(ValueError, match="interlace method 2"):
         read_png_gray(str(path))
 
 

@@ -81,9 +81,17 @@ def test_convert_hwr_params_fills_every_parameter():
 
 
 def test_build_hwr_crnn_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_hwr("crnn", NUM_CLASS)
+    """Ported since: ``crnn`` and ``small_crnn`` build their modules
+    (``tests/test_torch_model_variants.py`` holds them against JAX); an
+    unknown kind is refused."""
+    from handwriting_line_generation_tpu_torch.models.hwr import (
+        CRNN, SmallCRNN,
+    )
+    assert isinstance(build_hwr("crnn", NUM_CLASS), CRNN)
+    assert isinstance(build_hwr("small_crnn", NUM_CLASS), SmallCRNN)
     assert build_hwr("none", NUM_CLASS) is None
+    with pytest.raises(ValueError, match="unknown hwr kind"):
+        build_hwr("lstm", NUM_CLASS)
 
 
 @pytest.mark.parametrize("W", [7, 8, 13, 16])
