@@ -195,8 +195,24 @@ Phases, in order; any failure exits non-zero:
     on 16 lines of 64 x 1024, the card against the CPU; the epilogue and
     the CTC kernel against their plain versions and timed at each new
     path's shapes;
-19. summary — one JSON line of kernels (the epilogue at generation, on
-    the evaluation path and on phase 18's paths; the CTC kernel once for
+19. the plotting and dataset-dump CLIs, on numpy alone (f32, TF32 off)
+    — a style bank of the paper model (seeded weights and conv biases)
+    over 8 x 32 u8 lines of 64 x 1024 as 16 author pairs, one thumbnail a
+    style rendered by ``GenerationSession`` through the epilogue kernel (9
+    launches; the kernel against its plain version at that shape), then
+    ``umap_styles --thumbnails`` and ``umap_styles`` (960 x 960; each
+    uncovered dot's centre pixel in its author's ``tab20`` colour at the
+    axis transform of the PCA embedding; the last thumbnail at its point),
+    ``graph --csv`` of phase 14's ``iam_gan_paper`` log (every sample's
+    pixel drawn), ``play_styles --heatmap`` (its pixels ``VIRIDIS[d]``,
+    recomputed) and ``inspect_dataset --augment`` over the mini-IAM
+    fixture (twice: the same ``_aug.png`` files) and ``syn_hwr3``'s
+    synthetic records, the augmentation on the card; every file decoded by
+    the port's reader at its size, no matplotlib, cv2, PIL or JAX in
+    ``sys.modules``; each call's seconds;
+20. summary — one JSON line of kernels (the epilogue at generation, on
+    the evaluation path, on phase 18's paths and at phase 19's
+    thumbnails; the CTC kernel once for
     each path that runs it, with that path's launches and main-bucket
     times; the CLI's stages, the distributed runs' ranks, the pipeline's
     stages and phase 18's recognizers at their own shapes), then the
@@ -3258,6 +3274,247 @@ def variants_phase(torch, np, tt, F, ctc, ge, HWRTrainer, load_config,
     return epi, ctc_rows
 
 
+# phase 19: the plotting and dataset-dump CLIs, on numpy alone (no
+# matplotlib, OpenCV or PIL): a style bank of the paper model and its
+# thumbnails through the epilogue kernel, the style map, the training
+# curves of phase 14's GAN run, the heatmap, and the dataset dumps with the
+# augmentation on the card
+THUMB_TEXT = "A MOVE to stop"
+THUMB_T = 64                       # spaced positions: 64 x 256 thumbnails
+PLOT_BANNED = ("matplotlib", "cv2", "PIL", "jax", "jaxlib", "flax",
+               "handwriting_line_generation_tpu")
+INSPECT_RUNS = {                   # config, overrides, batches
+    "mini_iam": ("iam_gan_paper.json", [f"data.data_dir={CLI_FIXTURE}"], 2),
+    "syn_hwr3": ("syn_hwr3.json", ["data.synthetic_authors=2",
+                                   "data.synthetic_lines=8",
+                                   "data.batch_size=8"], 1),
+}
+
+
+def check_style_map(np, path, data, thumbs=None):
+    """A ``umap_styles`` PNG against the geometry it promises: 960 x 960;
+    each dot's centre pixel (where no other dot, the legend or a thumbnail
+    covers it) in ``TAB20[author index % 20]``; with ``thumbs`` (id ->
+    u8 image), the last thumbnail drawn at its point, area-averaged to a
+    quarter.  Returns how many dots it checked."""
+    from handwriting_line_generation_tpu_torch.inference.styles import (
+        STYLE_DOT_RADIUS, STYLE_MAP_PX, THUMB_ZOOM, umap_embed,
+    )
+    from handwriting_line_generation_tpu_torch.utils.colormap import TAB20
+    from handwriting_line_generation_tpu_torch.utils.png import read_png_rgb
+    from handwriting_line_generation_tpu_torch.utils.raster_plot import (
+        Canvas, area_resize, data_limits,
+    )
+    img = read_png_rgb(path)
+    if img.shape != (STYLE_MAP_PX, STYLE_MAP_PX, 3):
+        raise AssertionError(f"{path}: shape {img.shape}")
+    emb = umap_embed(data)
+    authors = [str(a) for a in data["authors"]]
+    uniq = sorted(set(authors))
+    idx = np.searchsorted(uniq, authors)
+    c = Canvas(STYLE_MAP_PX, STYLE_MAP_PX, data_limits(emb[:, 0]),
+               data_limits(emb[:, 1]))
+    px, py = c.transform(emb[:, 0], emb[:, 1])
+    covered = np.zeros(img.shape[:2], bool)
+    legend = None
+    if len(uniq) <= 20:             # the legend's box, drawn last
+        c0, r0, c1, r1 = c.legend([(a, TAB20[i % 20], "dot")
+                                   for i, a in enumerate(uniq)],
+                                  avoid=(px, py))
+        legend = (r0, c0, r1, c1)
+        covered[r0:r1 + 1, c0:c1 + 1] = True
+    if thumbs:
+        last = None
+        for j, sid in enumerate(map(str, data["ids"])):
+            if sid in thumbs:
+                t = area_resize(thumbs[sid], THUMB_ZOOM)
+                h, w = t.shape
+                r0, c0 = py[j] - h // 2, px[j] - w // 2
+                covered[max(r0, 0):r0 + h, max(c0, 0):c0 + w] = True
+                last = (r0, c0, t)
+        r0, c0, t = last
+        h, w = t.shape
+        clear = legend is None or (r0 > legend[2] or r0 + h <= legend[0]
+                                   or c0 > legend[3] or c0 + w <= legend[1])
+        if 0 <= r0 and r0 + h <= img.shape[0] and 0 <= c0 \
+                and c0 + w <= img.shape[1] and clear:
+            if not (img[r0:r0 + h, c0:c0 + w] == t[..., None]).all():
+                raise AssertionError("the last thumbnail is not at its "
+                                     "point")
+    near = 2 * STYLE_DOT_RADIUS + 2
+    checked = 0
+    for j in range(len(px)):
+        d = np.hypot(px - px[j], py - py[j])
+        d[j] = np.inf
+        if d.min() <= near or covered[py[j], px[j]]:
+            continue
+        want = TAB20[idx[j] % 20]
+        if not (img[py[j], px[j]] == want).all():
+            raise AssertionError(f"dot {j} at {(px[j], py[j])}: "
+                                 f"{img[py[j], px[j]]}, want {want}")
+        checked += 1
+    return checked
+
+
+def check_curves(np, path, log_path):
+    """A ``graph`` PNG: 1000 x 600, and every sample of every curve at its
+    transformed pixel drawn (not the white background), but where the
+    legend covers it."""
+    from handwriting_line_generation_tpu_torch.utils.png import read_png_rgb
+    from handwriting_line_generation_tpu_torch.utils.raster_plot import (
+        Canvas, data_limits,
+    )
+    from handwriting_line_generation_tpu_torch.utils.train_log import \
+        TrainLog
+    img = read_png_rgb(path)
+    if img.shape != (600, 1000, 3):
+        raise AssertionError(f"{path}: shape {img.shape}")
+    with tempfile.TemporaryDirectory() as work:
+        curves = TrainLog.load(log_path).plot(str(pathlib.Path(work,
+                                                               "p.png")))
+    xs = [x for c in curves.values() for x in c[0]]
+    ys = [y for c in curves.values() for y in c[1]]
+    c = Canvas(1000, 600, data_limits(xs), data_limits(ys))
+    px, py = c.transform(xs, ys)
+    c0, r0, c1, r1 = c.legend([(k, v[2], "line") for k, v in curves.items()],
+                              avoid=(px, py))
+    clear = ~((px >= c0) & (px <= c1) & (py >= r0) & (py <= r1))
+    blank = (img[py, px] == 255).all(-1) & clear
+    if blank.any():
+        raise AssertionError(f"{int(blank.sum())} of {len(xs)} curve "
+                             "samples not drawn")
+    return len(curves), int(clear.sum())
+
+
+def plots_phase(torch, np, ge, tt, ts, card, gan_log):
+    """Phase 19.  Returns the kernels-line entry of the thumbnails'
+    epilogue."""
+    from handwriting_line_generation_tpu_torch import (
+        graph, inspect_dataset, play_styles, umap_styles,
+    )
+    from handwriting_line_generation_tpu_torch.charset import IAM_CHARSET
+    from handwriting_line_generation_tpu_torch.inference.generate import (
+        GenerationSession, to_uint8,
+    )
+    from handwriting_line_generation_tpu_torch.inference.styles import (
+        StyleExtractor, load_styles, save_styles,
+    )
+    from handwriting_line_generation_tpu_torch.utils.colormap import VIRIDIS
+    from handwriting_line_generation_tpu_torch.utils.png import (
+        read_png_gray, read_png_rgb, write_png_gray,
+    )
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    work = tempfile.TemporaryDirectory()
+    root = pathlib.Path(work.name)
+    secs = {}
+
+    # the bank and its thumbnails through the epilogue kernel
+    model = ts.paper_model(DEVICE)
+    t0 = time.perf_counter()
+    bank = StyleExtractor(model, device=DEVICE).extract_dataset(
+        _Fixed(_eval_batches(np, tt)))
+    secs["style bank"] = time.perf_counter() - t0
+    bank_path = str(root / "bank.npz")
+    save_styles(bank_path, bank)
+    n = len(bank["ids"])
+    session = GenerationSession(model, IAM_CHARSET, device=DEVICE)
+    ge.block_epilogue.launches = 0
+    t0 = time.perf_counter()
+    imgs = session.render([THUMB_TEXT] * n, bank["styles"], seed=0,
+                          spaced_len=THUMB_T)
+    secs["thumbnails"] = time.perf_counter() - t0
+    launches = ge.block_epilogue.launches
+    if launches != 9 or imgs.shape != (n, 64, 4 * THUMB_T, 1) \
+            or not np.isfinite(imgs).all():
+        raise AssertionError(f"thumbnails: {launches} launches, shape "
+                             f"{imgs.shape}")
+    thumbs = {}
+    (root / "thumbs").mkdir()
+    for sid, im in zip(map(str, bank["ids"]), imgs):
+        thumbs[sid] = to_uint8(im)
+        write_png_gray(str(root / "thumbs" / f"{sid}.png"), thumbs[sid])
+    row = epilogue_row(torch, ge, tt, f"gen_epilogue (thumbnails, B={n} "
+                       f"T={THUMB_T} float32)", epilogue_calls(t=THUMB_T),
+                       n, torch.float32, launches, card)
+    del model, session
+    torch.cuda.empty_cache()
+
+    # the style map, with thumbnails and by author mean
+    data = load_styles(bank_path)
+    out, _, secs["umap_styles --thumbnails"] = _cli_call(
+        torch, ge, umap_styles, [bank_path, "-o", str(root / "map.png"),
+                                 "--thumbnails", str(root / "thumbs")])
+    check_style_map(np, str(root / "map.png"), data, thumbs)
+    out, _, secs["umap_styles"] = _cli_call(
+        torch, ge, umap_styles, [bank_path, "-o", str(root / "dots.png")])
+    dots = check_style_map(np, str(root / "dots.png"), data)
+    if dots == 0:
+        raise AssertionError("no style-map dot could be checked")
+
+    # phase 14's GAN curves
+    log_path = root / "train_log.json"
+    log_path.write_text(gan_log)
+    out, _, secs["graph --csv"] = _cli_call(
+        torch, ge, graph, [str(log_path), "-o", str(root / "curves.png"),
+                           "--csv", str(root / "log.csv")])
+    n_keys, n_samples = check_curves(np, str(root / "curves.png"),
+                                     str(log_path))
+    header = (root / "log.csv").read_text().splitlines()[0].split(",")
+    if "iteration" not in header or len(header) < n_keys + 1:
+        raise AssertionError(f"log.csv header {header}")
+
+    # the heatmap against LUT[d], recomputed
+    heat = str(root / "heat.png")
+    out, _, secs["play_styles --heatmap"] = _cli_call(
+        torch, ge, play_styles, [bank_path, "--heatmap", heat,
+                                 "--device", DEVICE])
+    s = np.asarray(data["styles"], np.float32)
+    s = s[np.argsort(np.asarray(data["authors"]), kind="stable")[:512]]
+    d = np.linalg.norm(s[:, None] - s[None, :], axis=-1)
+    d = (255 * d / max(d.max(), 1e-8)).astype(np.uint8)
+    if not (read_png_rgb(heat) == VIRIDIS[d]).all():
+        raise AssertionError("heatmap pixels differ from VIRIDIS[d]")
+
+    # the dataset dumps, the augmentation on the card
+    dumps = {}
+    for name, (config, overrides, batches) in INSPECT_RUNS.items():
+        cfg_path = root / f"{name}.json"
+        cfg_path.write_text(json.dumps(_config(config, overrides).to_dict()))
+        for rep in range(2 if name == "mini_iam" else 1):
+            dump = root / f"dump_{name}_{rep}"
+            out, _, t = _cli_call(torch, ge, inspect_dataset, [
+                "-c", str(cfg_path), "-n", str(batches), "-o", str(dump),
+                "--augment", "--device", DEVICE])
+            secs[f"inspect_dataset --augment ({name}{', again' * rep})"] = t
+        gts = (dump / "gt.txt").read_text().splitlines()
+        for line in gts:
+            stem = line.split("\t")[0]
+            shapes = {kind: read_png_gray(str(dump / f"{stem}_{kind}.png"))
+                      .shape for kind in ("line", "mask", "aug")}
+            if len(set(shapes.values())) != 1 or shapes["line"][0] != 64:
+                raise AssertionError(f"{name} {stem}: shapes {shapes}")
+        dumps[name] = (len(gts), out.strip().splitlines()[-1])
+    for f in (root / "dump_mini_iam_0").glob("*_aug.png"):
+        if f.read_bytes() != (root / "dump_mini_iam_1" / f.name).read_bytes():
+            raise AssertionError(f"{f.name} differs between two runs")
+
+    bad = [m for m in sys.modules if m.split(".")[0] in PLOT_BANNED]
+    if bad:
+        raise AssertionError(f"banned modules imported: {bad}")
+    work.cleanup()
+    print(f"phase 19: style map of {n} styles ({dots} dots checked), "
+          f"curves of {n_keys} keys ({n_samples} samples), heatmap "
+          f"{d.shape[0]}x{d.shape[0]}, dumps "
+          + ", ".join(f"{k} {v[0]} lines ({v[1]})" for k, v in dumps.items())
+          + "; no matplotlib, cv2, PIL or JAX imported", flush=True)
+    for k, v in secs.items():
+        print(f"phase 19 {k}: {v:.3f} s {card}", flush=True)
+    print(f"phase 19: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return row
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3463,6 +3720,8 @@ def main():
     dist_rows = dist_phase(torch, tt, F, ctc, card,
                            pathlib.Path(ckpts.name, "dist"),
                            pathlib.Path(ckpts.name, "cli"))
+    gan_log = pathlib.Path(ckpts.name, "cli", "iam_gan_paper",
+                           "train_log.json").read_text()
     ckpts.cleanup()
 
     # 17. the synthetic pipeline: iam3 through the GAN and again (no step),
@@ -3476,7 +3735,12 @@ def main():
     var_epi, var_ctc = variants_phase(torch, np, tt, F, ctc, ge, HWRTrainer,
                                       load_config, card)
 
-    # 19. summary
+    # 19. the plotting and dataset-dump CLIs: a style bank's thumbnails
+    # through the epilogue kernel, the style map, phase 14's GAN curves,
+    # the heatmap and the dataset dumps, with no matplotlib or OpenCV
+    plot_row = plots_phase(torch, np, ge, tt, ts, card, gan_log)
+
+    # 20. summary
     print(smi)
     # the CTC kernel once per path that runs it: each entry's launches come
     # from that path's run, its times from that path's main bucket
@@ -3497,7 +3761,7 @@ def main():
         "plain_ms": t_["plain_ms"], "bound_ms": t_["bound_ms"],
         "bound_by": t_["bound_by"], "library_ms": t_["library_ms"]}
         for path, (b, t, lab), n, err, t_ in ctc_paths + var_ctc]
-        + var_epi}))
+        + var_epi + [plot_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -37,11 +37,24 @@ behind), a ``model_best`` (``{params, spectral}``) or a bare ``<name>-swa``
 params tree; :func:`hwr_tree` the recognizer of a standalone HWR state or
 of a composite checkpoint, and :func:`encoder_tree` an autoencoder state's
 encoder.
+
+An optax optimizer state, as msgpack stores it (a chain's tuple as a map
+``"0"``, ``"1"``, ...; a ``NamedTuple`` as a map of its fields; optax's
+``MaskedNode`` as an empty map), goes to torch's by :func:`optax_adam`
+(``ScaleByAdamState``'s ``count``, ``mu`` and ``nu``, the moments through
+the weights' converter) and :func:`torch_optimizer_state` (the
+``state_dict``s of a ``torch.optim.Adam``/``SGD`` and its ``LambdaLR``).
+Every layout rule above is an index map: a transpose, a reshape, a
+spatial flip, a concatenation or a stack, each output element one input
+element.  So the converter maps ``mu`` linearly and ``nu`` elementwise,
+its entries non-negative still, and a converted moment is the moment of
+the converted parameter (``tests/test_torch_jax_resume.py`` converts a
+tree of distinct values and finds a permutation of them).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Optional
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -438,3 +451,107 @@ def encoder_tree(raw: Mapping) -> Mapping:
     """The perceptual encoder tree of a raw JAX autoencoder state (or its
     ``model_best``): ``raw["params"]["params"]["encoder"]``."""
     return raw["params"]["params"]["encoder"]
+
+
+# ---------------------------------------------------------------------------
+# optax states
+# ---------------------------------------------------------------------------
+
+_ADAM_FIELDS = {"count", "mu", "nu"}
+
+
+def _find(node, fields) -> Optional[Mapping]:
+    """The first map (depth first, children in key order) whose keys are
+    exactly ``fields``."""
+    if not isinstance(node, Mapping):
+        return None
+    if set(node) == fields:
+        return node
+    for k in sorted(node, key=lambda k: (len(k), k)):
+        got = _find(node[k], fields)
+        if got is not None:
+            return got
+    return None
+
+
+def optax_partitions(opt_state: Mapping) -> Dict[str, Mapping]:
+    """The state of each partition of an ``optax.multi_transform`` in
+    ``opt_state`` (the GAN's ``chain(clip, multi_transform({...}))``:
+    ``{"0": {}, "1": {"inner_states": {part: {"inner_state": s}}}}``), by
+    partition name; ``{"": opt_state}`` when it holds none."""
+    node = _find(opt_state, {"inner_states"})
+    if node is None:
+        return {"": opt_state}
+    return {k: v["inner_state"] for k, v in node["inner_states"].items()}
+
+
+def fill_masked(tree, params):
+    """``tree`` with each empty map (optax's ``MaskedNode``: a parameter
+    outside the partition) where ``params`` holds an array replaced by
+    float32 zeros of that array's shape."""
+    if isinstance(params, Mapping):
+        if not isinstance(tree, Mapping):
+            raise KeyError("moment tree does not follow the parameters")
+        return {k: fill_masked(tree.get(k, {}), v)
+                for k, v in params.items()}
+    if isinstance(tree, Mapping):
+        if tree:
+            raise KeyError("moment tree does not follow the parameters")
+        return np.zeros(np.shape(_np(params)), np.float32)
+    return tree
+
+
+def optax_adam(state: Mapping, params: Mapping,
+               convert: Callable[[Mapping], Dict[str, torch.Tensor]]
+               ) -> Tuple[Optional[int], Optional[Dict[str, torch.Tensor]],
+                          Optional[Dict[str, torch.Tensor]]]:
+    """``(count, mu, nu)`` of the ``ScaleByAdamState`` in an optax
+    ``state`` (``optax.adam``, or ``chain(add_decayed_weights, adam)``),
+    the moments converted by ``convert`` (the converter of the weights
+    ``params``, masked leaves as zeros).  ``optax.sgd`` holds no moments:
+    ``(count, None, None)``, its ``count`` the schedule's, or None under a
+    constant rate."""
+    adam = _find(state, _ADAM_FIELDS)
+    if adam is None:
+        sched = _find(state, {"count"})
+        return (None if sched is None else int(sched["count"])), None, None
+    count = int(adam["count"])
+    sched = _find(state, {"count"})
+    if sched is not None and sched is not adam \
+            and int(sched["count"]) != count:
+        raise ValueError(f"Adam count {count} and schedule count "
+                         f"{int(sched['count'])} differ")
+    mu, nu = (convert(fill_masked(adam[k], params)) for k in ("mu", "nu"))
+    return count, mu, nu
+
+
+def torch_optimizer_state(optimizer: torch.optim.Optimizer,
+                          scheduler: torch.optim.lr_scheduler.LambdaLR,
+                          names: List[str], count: int,
+                          mu: Optional[Dict[str, torch.Tensor]] = None,
+                          nu: Optional[Dict[str, torch.Tensor]] = None
+                          ) -> Tuple[Dict, Dict]:
+    """The ``state_dict``s of ``optimizer`` (a ``torch.optim.Adam`` or
+    ``SGD``; ``names``: its parameters' names, in its groups' order) and of
+    its ``scheduler`` after ``count`` optax updates: each parameter's
+    ``step`` is ``count`` and its ``exp_avg``/``exp_avg_sq`` are ``mu``'s
+    and ``nu``'s (optax's bias correction at ``count + 1`` is torch's at
+    ``step + 1``); the schedule's ``last_epoch`` is ``count`` and each
+    group's rate its lambda at ``count`` (optax calls its schedule with the
+    update count).  SGD has no state (``mu`` None)."""
+    opt = optimizer.state_dict()
+    n = sum(len(g["params"]) for g in opt["param_groups"])
+    if len(names) != n:
+        raise ValueError(f"{len(names)} names for {n} parameters")
+    state = {}
+    if mu is not None:
+        for i, name in enumerate(names):
+            state[i] = {"step": torch.tensor(float(count)),
+                        "exp_avg": mu[name].clone(),
+                        "exp_avg_sq": nu[name].clone()}
+    lrs = [base * lam(count) for base, lam in
+           zip(scheduler.base_lrs, scheduler.lr_lambdas)]
+    groups = [dict(g, lr=lr) for g, lr in zip(opt["param_groups"], lrs)]
+    sched = dict(scheduler.state_dict(), last_epoch=count,
+                 _step_count=count + 1, _last_lr=lrs)
+    return {"state": state, "param_groups": groups}, sched

@@ -18,8 +18,11 @@ layouts the port's trainers write:
 A JAX package's run directory loads the same way: ``<name>.msgpack`` is
 read in place of ``<name>.pt`` (``utils/msgpack.py``) and its flax tree
 converted (``convert.convert_checkpoint``: the three layouts above, as the
-JAX package writes them).  The reader is picked by which file exists; a
-name with both files is refused.
+JAX package writes them).  The reader is picked by which file exists.  A
+name with both files is a JAX run the port resumed and saved in: its
+sidecar ``<name>.json`` then says ``"format": "pt"`` and the port's newer
+``.pt`` is read; a sidecar without that field is the JAX package's, and
+both files are refused (``utils.checkpoint.checkpoint_file``).
 """
 
 from __future__ import annotations
@@ -63,7 +66,7 @@ def _step(obj, run_dir: str, name: str) -> int:
 
 def _read(run_dir: str, name: str):
     """``(object, state_dict)`` of ``<name>.pt`` or ``<name>.msgpack``,
-    whichever exists (both: refused)."""
+    whichever exists (both: the one the sidecar names, else refused)."""
     path = checkpoint_file(os.path.join(run_dir, name))
     if not os.path.exists(path):
         raise _missing(run_dir, name)

@@ -5,8 +5,9 @@ Counterpart of ``handwriting_line_generation_tpu/inference/styles.py``:
 iterate a batcher, run ``HWWithStyle.extract_style`` per batch of author
 groups, and keep one ``{styles, authors, ids}`` row per group.  Banks are
 ``.npz`` files in the JAX package's layout, so they move between the two
-packages.  ``umap_embed`` keeps JAX's try-UMAP-else-PCA.  Not ported yet
-(ROADMAP.md): ``plot_style_map`` (matplotlib).
+packages.  ``umap_embed`` keeps JAX's try-UMAP-else-PCA, and
+``plot_style_map`` draws its scatter on ``utils/raster_plot.py``'s canvas
+where JAX draws with matplotlib.
 """
 
 from __future__ import annotations
@@ -22,6 +23,17 @@ from handwriting_line_generation_tpu_torch.device import resolve_device
 from handwriting_line_generation_tpu_torch.models.hw_with_style import (
     HWWithStyle, pack_style,
 )
+from handwriting_line_generation_tpu_torch.utils.colormap import TAB20
+from handwriting_line_generation_tpu_torch.utils.png import read_png_gray
+from handwriting_line_generation_tpu_torch.utils.raster_plot import (
+    Canvas, data_limits,
+)
+
+# the JAX plot's figure: 8 x 8 in at 120 dpi; ``scatter(s=12)``: a dot of
+# sqrt(12) points across; thumbnails at ``OffsetImage(zoom=0.25)``
+STYLE_MAP_PX = 8 * 120
+STYLE_DOT_RADIUS = 12 ** 0.5 / 2 * 120 / 72
+THUMB_ZOOM = 0.25
 
 
 class StyleExtractor:
@@ -174,3 +186,44 @@ def umap_embed(data: Dict, n_components: int = 2) -> np.ndarray:
         x = styles - styles.mean(0)
         _, _, vt = np.linalg.svd(x, full_matrices=False)
         return x @ vt[:n_components].T
+
+
+def plot_style_map(data: Dict, path: str, author_mean: bool = False,
+                   thumbnail_dir: Optional[str] = None) -> Dict:
+    """The 2-D embedding of the styles (:func:`umap_embed`) as a 960 x
+    960 RGB PNG, the JAX ``plot_style_map``'s figure: one dot a style
+    in ``TAB20[i % 20]``, ``i`` its author's index in
+    ``sorted(set(map(str, authors)))``; with ``author_mean``, one style
+    an author (the mean of :func:`styles_by_author`); with
+    ``thumbnail_dir``, each style's ``<id>.png`` (when it exists)
+    area-averaged to a quarter and centred on its point; a legend of the
+    authors when there are at most 20, in the corner that covers the
+    fewest points. Returns the embedding and each author's index
+    (``{"embedding", "author_index"}``)."""
+    if author_mean:
+        by = styles_by_author(data)
+        data = {"styles": np.stack([v.mean(0) for v in by.values()]),
+                "authors": list(by.keys()), "ids": list(by.keys())}
+    emb = umap_embed(data)
+    authors = np.asarray([str(a) for a in data["authors"]])
+    uniq = sorted(set(authors.tolist()))
+    canvas = Canvas(STYLE_MAP_PX, STYLE_MAP_PX, data_limits(emb[:, 0]),
+                    data_limits(emb[:, 1]))
+    canvas.frame()
+    index = np.searchsorted(uniq, authors)
+    for i, a in enumerate(uniq):
+        m = index == i
+        canvas.scatter(emb[m, 0], emb[m, 1], TAB20[i % 20],
+                       STYLE_DOT_RADIUS)
+    if thumbnail_dir:
+        for j, sid in enumerate(map(str, data["ids"])):
+            f = os.path.join(thumbnail_dir, f"{sid}.png")
+            if os.path.exists(f):
+                canvas.image(read_png_gray(f), emb[j, 0], emb[j, 1],
+                             THUMB_ZOOM)
+    if len(uniq) <= 20:
+        canvas.legend([(a, TAB20[i % 20], "dot")
+                       for i, a in enumerate(uniq)],
+                      avoid=canvas.transform(emb[:, 0], emb[:, 1]))
+    canvas.save(path)
+    return {"embedding": emb, "author_index": index}

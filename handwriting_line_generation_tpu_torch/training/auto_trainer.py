@@ -80,6 +80,9 @@ class AutoTrainer(CheckpointedTrainer):
         self.generator = torch.Generator(self.device).manual_seed(seed + 1)
         self.step = 0
 
+    def _jax_params(self, tree):
+        return convert_autoencoder_params(tree)
+
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x).to(self.device, non_blocking=True)
 

@@ -51,7 +51,9 @@ of their reconstructions and of generated lines), ``model_best`` on
 state (:meth:`GanTrainer.state_dict`), resume and SIGINT.  Unlike the JAX
 loop, it builds its state from a seed alone (JAX consumes the first batch
 to build it), and a resumed run continues the text sampler where it was
-(JAX re-seeds it).
+(JAX re-seeds it).  It also resumes a JAX run directory
+(:meth:`GanTrainer.load_jax_state`); then the sampler is re-seeded as JAX
+re-seeds it.
 
 Under a mesh (``use_mesh``, or ``train(..., mesh=, fsdp=)``; see
 ``parallel/mesh.py``) each rank steps on its share of every image batch.
@@ -88,8 +90,8 @@ from handwriting_line_generation_tpu_torch.charset import (
 )
 from handwriting_line_generation_tpu_torch.config import Config
 from handwriting_line_generation_tpu_torch.convert import (
-    convert_autoencoder_params, convert_hwr_params, convert_params,
-    encoder_tree, hwr_tree,
+    convert_autoencoder_params, convert_checkpoint, convert_hwr_params,
+    convert_params, encoder_tree, fill_masked, hwr_tree,
 )
 from handwriting_line_generation_tpu_torch.data.text_data import TextSampler
 from handwriting_line_generation_tpu_torch.device import resolve_device
@@ -120,7 +122,7 @@ from handwriting_line_generation_tpu_torch.parallel.mesh import (
 from handwriting_line_generation_tpu_torch.training.curriculum import \
     Curriculum
 from handwriting_line_generation_tpu_torch.training.loop import (
-    CheckpointedTrainer, validation_batches,
+    CheckpointedTrainer, resume_seed, validation_batches,
 )
 from handwriting_line_generation_tpu_torch.training.losses import (
     disc_hinge_loss, gen_adv_loss, vae_kl,
@@ -132,7 +134,7 @@ from handwriting_line_generation_tpu_torch.training.train_state import (
 from handwriting_line_generation_tpu_torch.utils import msgpack
 from handwriting_line_generation_tpu_torch.utils.checkpoint import (
     checkpoint_exists, checkpoint_file, extract_subtree, load_checkpoint,
-    load_meta,
+    load_meta, load_raw_checkpoint,
 )
 from handwriting_line_generation_tpu_torch.utils.error_rates import \
     batch_cer_wer
@@ -901,11 +903,59 @@ class GanTrainer(CheckpointedTrainer):
         return side, {"swa_n": self.swa_n}
 
     def _resume_side(self, run_dir: str) -> None:
-        if checkpoint_exists(run_dir, "checkpoint-latest-swa"):
-            saved = load_checkpoint(run_dir, "checkpoint-latest-swa")
-            self.swa = [saved[n].to(self.device) for n in self.state.names]
-            self.swa_n = int(load_meta(run_dir, "checkpoint-latest-swa")
-                             .get("swa_n", 1))
+        self._load_swa(run_dir)
+
+    def _load_swa(self, run_dir: str) -> None:
+        """The SWA weights of ``checkpoint-latest-swa`` (``.pt``, or a JAX
+        run's ``.msgpack``: a bare params tree) and ``swa_n`` from its
+        sidecar, when the file exists."""
+        name = "checkpoint-latest-swa"
+        if not checkpoint_exists(run_dir, name):
+            return
+        if checkpoint_file(os.path.join(run_dir, name)).endswith(".msgpack"):
+            saved = convert_params(load_raw_checkpoint(run_dir, name))
+        else:
+            saved = load_checkpoint(run_dir, name)
+        self.swa = [saved[n].to(self.device) for n in self.state.names]
+        self.swa_n = int(load_meta(run_dir, name).get("swa_n", 1))
+
+    def load_jax_state(self, raw: Dict[str, Any], run_dir: str) -> None:
+        """Continue a JAX run from its ``checkpoint-latest.msgpack`` (a
+        ``GanTrainState`` as ``load_raw_checkpoint`` reads it): the weights
+        and ``u``'s, every optimizer's Adam moments, step counts and
+        schedule position (``PartitionAdam.load_optax``; the separate
+        ``gen_only``/``style_ex`` ones where the curriculum builds them),
+        the saved gradient groups and ``have_saved``, the style bank and its
+        count, the step, and ``checkpoint-latest-swa`` with its ``swa_n``.
+        As JAX does on a resume, the text sampler starts again from
+        ``trainer.seed``; JAX's ``rng`` key cannot drive torch, so the
+        state's generator is seeded from ``trainer.seed`` and the resumed
+        step (``loop.resume_seed``)."""
+        s = self.state
+        params = raw["params"]
+        self.model.load_state_dict(convert_checkpoint(raw))
+        step = int(raw["step"])
+        for name in ("opt_main", "opt_disc", "opt_gen_only", "opt_style_ex"):
+            opt = getattr(s, name)
+            if opt is None:
+                continue
+            if not raw.get(name):
+                raise ValueError(f"the JAX checkpoint in {run_dir} has no "
+                                 f"{name} state")
+            opt.load_optax(raw[name], params, convert_params, s.names, step)
+        with torch.no_grad():
+            for slot in ("saved_recog", "saved_adv"):
+                got = convert_params(fill_masked(raw[slot], params))
+                torch._foreach_copy_(getattr(s, slot),
+                                     [got[n].to(self.device)
+                                      for n in s.names])
+            s.style_bank.copy_(torch.from_numpy(
+                np.array(raw["style_bank"], np.float32)))
+        s.have_saved = bool(raw["have_saved"])
+        s.bank_count = int(raw["bank_count"])
+        s.step = step
+        s.generator.manual_seed(resume_seed(self.cfg.trainer.seed, step))
+        self._load_swa(run_dir)
 
     # -- sample dumps ----------------------------------------------------------
 

@@ -83,6 +83,9 @@ class HWRTrainer(CheckpointedTrainer):
         self.generator = torch.Generator(self.device).manual_seed(seed + 1)
         self.step = 0
 
+    def _jax_params(self, tree):
+        return convert_hwr_params(tree)
+
     def _tensor(self, x: ArrayLike) -> torch.Tensor:
         return torch.as_tensor(x).to(self.device, non_blocking=True)
 

@@ -6,6 +6,7 @@ Counterpart of the loops in ``HWRTrainer.train``, ``AutoTrainer.train`` and
 run directory is ``<trainer.save_dir>/<name>``.  The loop refuses to start a
 fresh run over one that holds checkpoints, resumes from its
 ``checkpoint-latest`` (and the ``train_log.json`` entries up to that step),
+the port's ``.pt`` or a JAX run's ``.msgpack`` (``load_jax_state``),
 validates every ``val_every`` steps and keeps ``model_best`` by the
 trainer's monitored key (``val_CER`` for the recognizer and the
 autoencoder), saves on the config's ``save_step``/``save_step_minor``, and
@@ -36,6 +37,9 @@ from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from handwriting_line_generation_tpu_torch.convert import (
+    optax_adam, torch_optimizer_state,
+)
 from handwriting_line_generation_tpu_torch.data.datasets import pad_batch
 from handwriting_line_generation_tpu_torch.ops.augment import \
     quantize_image_u8
@@ -45,6 +49,14 @@ from handwriting_line_generation_tpu_torch.parallel.mesh import (
 from handwriting_line_generation_tpu_torch.utils.checkpoint import \
     CheckpointManager
 from handwriting_line_generation_tpu_torch.utils.train_log import TrainLog
+
+
+def resume_seed(seed: int, step: int) -> int:
+    """The torch generators' seed of a run resumed from a JAX checkpoint at
+    ``step``: JAX's ``rng`` key has no torch counterpart, so the draws
+    after a JAX resume come from ``trainer.seed`` and the step (seed + 1,
+    a fresh run's, at step 0)."""
+    return seed + 1 + step
 
 
 def validation_batches(valid: Any, seed: int = 0) -> Iterable[Dict]:
@@ -135,6 +147,34 @@ class CheckpointedTrainer:
         self.step = int(state["step"])
         self.generator.set_state(state["generator"])
 
+    def _jax_params(self, tree: Any) -> Dict[str, torch.Tensor]:
+        """The model's state_dict of a flax params tree (the trainer's
+        converter: recognizer or autoencoder)."""
+        raise NotImplementedError
+
+    def load_jax_state(self, raw: Dict[str, Any], run_dir: str) -> None:
+        """Continue a JAX run: ``raw`` is its ``checkpoint-latest.msgpack``
+        (an ``HWRState``/``AutoState``: ``step``, ``params``, ``opt_state``,
+        ``rng``) as :func:`~..utils.checkpoint.load_raw_checkpoint` reads
+        it.  The weights and optax's Adam moments go through the weights'
+        layout converter (``convert.optax_adam``); every parameter's step
+        and the schedule's position are optax's ``count``
+        (``convert.torch_optimizer_state``).  JAX's ``rng`` key cannot
+        drive torch: the generator is seeded from ``trainer.seed`` and the
+        resumed step (:func:`resume_seed`)."""
+        self.model.load_state_dict(self._jax_params(raw["params"]))
+        self.step = int(raw["step"])
+        count, mu, nu = optax_adam(raw["opt_state"], raw["params"],
+                                   self._jax_params)
+        opt, sched = torch_optimizer_state(
+            self.optimizer, self.scheduler,
+            [n for n, _ in self.model.named_parameters()],
+            self.step if count is None else count, mu, nu)
+        self.optimizer.load_state_dict(opt)
+        self.scheduler.load_state_dict(sched)
+        self.generator.manual_seed(resume_seed(self.cfg.trainer.seed,
+                                               self.step))
+
     def monitor(self) -> Tuple[Optional[str], str]:
         """The validation key ``model_best`` follows, and ``min``/``max``."""
         return "val_CER", "min"
@@ -216,8 +256,11 @@ class CheckpointedTrainer:
         log_path = os.path.join(ckpt.directory, "train_log.json")
         ckpt.refuse_clobber(resume)
         if ckpt.has_latest():
-            self.load_state_dict(ckpt.latest())
-            self._resume_side(ckpt.directory)
+            if ckpt.latest_file().endswith(".msgpack"):
+                self.load_jax_state(ckpt.latest(), ckpt.directory)
+            else:
+                self.load_state_dict(ckpt.latest())
+                self._resume_side(ckpt.directory)
             log.resume_from(log_path, self.step)
         key, mode = self.monitor()
         sign = -1.0 if mode == "max" else 1.0

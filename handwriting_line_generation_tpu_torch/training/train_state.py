@@ -33,13 +33,16 @@ tensor per flax leaf, the same set.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import (Callable, Dict, Iterable, List, Optional, Sequence,
-                    Tuple)
+from typing import (Callable, Dict, Iterable, List, Mapping, Optional,
+                    Sequence, Tuple)
 
 import torch
 from torch import nn
 
 from handwriting_line_generation_tpu_torch.config import Config, OptimConfig
+from handwriting_line_generation_tpu_torch.convert import (
+    optax_adam, optax_partitions, torch_optimizer_state,
+)
 from handwriting_line_generation_tpu_torch.ops import rows
 from handwriting_line_generation_tpu_torch.parallel.mesh import (
     all_gather, fsdp_axis,
@@ -287,6 +290,11 @@ class PartitionAdam:
         self.params = list(params)
         self.grad_clip = grad_clip
         self.index = [i for i, l in enumerate(labels) if l in scales]
+        self.parts = list(scales)
+        self.labels = list(labels)
+        # the parameters' indices in the optimizer's order (its groups')
+        self.order = [i for part in scales for i in self.index
+                      if labels[i] == part]
         groups = [{"params": [self.params[i] for i in self.index
                               if labels[i] == part], "lr": cfg.lr * scale}
                   for part, scale in scales.items()]
@@ -305,6 +313,34 @@ class PartitionAdam:
     def load_state_dict(self, state: Dict) -> None:
         self.optimizer.load_state_dict(state["optimizer"])
         self.scheduler.load_state_dict(state["scheduler"])
+
+    def load_optax(self, opt_state: Mapping, params: Mapping,
+                   convert: Callable[[Mapping], Dict[str, torch.Tensor]],
+                   names: Sequence[str], step: int) -> None:
+        """Take the state of the JAX package's optimizer for the same
+        partitions: ``chain(clip, multi_transform({part: adam, ...}))`` as
+        msgpack stores it, each partition's ``ScaleByAdamState`` (its
+        moments param-shaped, empty maps outside the partition) converted
+        by ``convert`` (``convert_params``) for ``params`` (the flax
+        params tree), ``names`` the model's parameter names; ``step``
+        stands in for the count of a partition whose state holds none
+        (SGD at a constant rate)."""
+        parts = optax_partitions(opt_state)
+        counts, mu, nu = set(), {}, {}
+        for part in self.parts:
+            count, m, v = optax_adam(parts[part], params, convert)
+            counts.add(step if count is None else count)
+            if m is not None:        # the partition's own parameters
+                mine = [names[i] for i in self.order
+                        if self.labels[i] == part]
+                mu.update((n, m[n]) for n in mine)
+                nu.update((n, v[n]) for n in mine)
+        if len(counts) != 1:
+            raise ValueError(f"partition counts {sorted(counts)} differ")
+        opt, sched = torch_optimizer_state(
+            self.optimizer, self.scheduler, [names[i] for i in self.order],
+            counts.pop(), mu or None, nu or None)
+        self.load_state_dict({"optimizer": opt, "scheduler": sched})
 
     def step(self, grads: Sequence[Optional[torch.Tensor]]) -> None:
         for i in self.index:

@@ -20,7 +20,12 @@ The JAX package's checkpoints are flax msgpack, ``<name>.msgpack`` beside
 the same ``<name>.json``: :func:`load_raw_checkpoint` reads one as nested
 dicts of arrays (``utils/msgpack.py``, no ``msgpack`` package), as the JAX
 package's ``load_raw_checkpoint`` does, and :func:`checkpoint_file` picks
-the ``.pt`` or the ``.msgpack`` file of a name.
+the ``.pt`` or the ``.msgpack`` file of a name.  A run directory may hold
+both packages' files: the port resumes a JAX run (``train -c ... -r``) and
+saves beside it.  So the manager counts either package's checkpoints when
+it refuses to clobber a run, and the port's sidecars say ``"format":
+"pt"``, which :func:`checkpoint_file` follows when a name has both files
+(the JAX package's sidecars have no such field).
 
 Multi-process runs: only rank 0 writes (:func:`save_checkpoint` does
 nothing elsewhere), every rank builds the checkpoint (a sharded Adam
@@ -52,14 +57,23 @@ CLOBBER_MSG = ("run directory {d} already contains checkpoints; resume "
                "instead, or use a new config name")
 
 
+# file patterns of a run directory's checkpoints, the port's and the JAX
+# package's
+CHECKPOINT_PATTERNS = tuple(f"{stem}*{ext}" for stem in ("checkpoint-",
+                                                          "model_best")
+                            for ext in (".pt", ".msgpack"))
+FORMAT = "pt"                     # the port's sidecar ``format`` field
+
+
 def _path(directory: str, name: str) -> str:
     return os.path.join(directory, name + ".pt")
 
 
 def save_checkpoint(directory: str, name: str, obj: Any,
                     meta: Optional[Dict] = None) -> str:
-    """``torch.save`` ``obj`` to ``<directory>/<name>.pt`` (and ``meta`` to
-    ``<name>.json``), each through a temporary file and an atomic replace,
+    """``torch.save`` ``obj`` to ``<directory>/<name>.pt`` (and ``meta``,
+    with ``"format": "pt"``, to ``<name>.json``), each through a temporary
+    file and an atomic replace,
     so a reader never sees half a checkpoint.  Only the writing rank
     (:func:`~handwriting_line_generation_tpu_torch.parallel.mesh.is_writer`)
     writes; the path is returned on every rank."""
@@ -72,7 +86,7 @@ def save_checkpoint(directory: str, name: str, obj: Any,
     if meta is not None:
         mpath = os.path.join(directory, name + ".json")
         with open(mpath + ".tmp", "w") as f:
-            json.dump(meta, f, indent=2, default=str)
+            json.dump(dict(meta, format=FORMAT), f, indent=2, default=str)
         os.replace(mpath + ".tmp", mpath)
     return path
 
@@ -91,7 +105,8 @@ def load_meta(directory: str, name: str) -> Dict:
 
 
 def checkpoint_exists(directory: str, name: str) -> bool:
-    return os.path.exists(_path(directory, name))
+    """``<name>.pt`` or the JAX package's ``<name>.msgpack`` exists."""
+    return os.path.exists(checkpoint_file(os.path.join(directory, name)))
 
 
 def load_raw_checkpoint(directory: str, name: str) -> Any:
@@ -105,13 +120,23 @@ def load_raw_checkpoint(directory: str, name: str) -> Any:
 def checkpoint_file(path: str) -> str:
     """``path`` if it names a ``.pt`` or ``.msgpack`` file, else whichever
     of ``path.pt`` (the port's) and ``path.msgpack`` (the JAX package's)
-    exists (``path.pt`` when neither does); both existing is refused, as
-    the two might hold different weights."""
+    exists (``path.pt`` when neither does).  When both exist, the sidecar
+    ``path.json`` decides: the port wrote it last if it says ``"format":
+    "pt"`` (a port run that resumed a JAX run and saved); without the
+    field it is the JAX package's, and both files are refused, as they
+    might hold different weights."""
     if path.endswith((".pt", ".msgpack")):
         return path
     found = [path + ext for ext in (".pt", ".msgpack")
              if os.path.exists(path + ext)]
     if len(found) == 2:
+        try:
+            with open(path + ".json") as f:
+                fmt = json.load(f).get("format")
+        except (OSError, ValueError, AttributeError):
+            fmt = None
+        if fmt == FORMAT:
+            return found[0]
         raise ValueError(f"both {found[0]} and {found[1]} exist; remove "
                          f"one, or name the file with its extension")
     return found[0] if found else path + ".pt"
@@ -235,18 +260,31 @@ class CheckpointManager:
         if due:
             barrier()
 
+    def latest_file(self) -> str:
+        """The path of ``checkpoint-latest``: the port's ``.pt`` or the JAX
+        package's ``.msgpack`` (:func:`checkpoint_file`)."""
+        return checkpoint_file(os.path.join(self.directory,
+                                            "checkpoint-latest"))
+
     def latest(self) -> Any:
+        """The port's ``checkpoint-latest`` object, or the JAX package's
+        as nested dicts of arrays (:func:`load_raw_checkpoint`)."""
+        if self.latest_file().endswith(".msgpack"):
+            return load_raw_checkpoint(self.directory, "checkpoint-latest")
         return load_checkpoint(self.directory, "checkpoint-latest")
 
     def has_latest(self) -> bool:
         return checkpoint_exists(self.directory, "checkpoint-latest")
 
+    def _found(self):
+        return sorted(os.path.basename(p) for pat in CHECKPOINT_PATTERNS
+                      for p in glob.glob(os.path.join(self.directory, pat)))
+
     def has_checkpoints(self) -> bool:
-        """Any numbered, latest or best checkpoint in the run directory (a
-        run with ``save_step_minor=0`` writes no ``-latest`` but is just as
-        clobberable)."""
-        return any(glob.glob(os.path.join(self.directory, pat))
-                   for pat in ("checkpoint-*.pt", "model_best*.pt"))
+        """Any numbered, latest or best checkpoint in the run directory,
+        the port's or the JAX package's (a run with ``save_step_minor=0``
+        writes no ``-latest`` but is just as clobberable)."""
+        return bool(self._found())
 
     def refuse_clobber(self, resume: bool) -> None:
         """Raise rather than start a fresh run over a directory that holds
@@ -255,10 +293,9 @@ class CheckpointManager:
         if not resume and self.has_checkpoints():
             raise RuntimeError(CLOBBER_MSG.format(d=self.directory))
         if resume and self.has_checkpoints() and not self.has_latest():
-            found = sorted(os.path.basename(p) for p in glob.glob(
-                os.path.join(self.directory, "*.pt")))
             raise RuntimeError(
                 f"resume requested but {self.directory} has no "
                 f"checkpoint-latest to resume from (found: "
-                f"{', '.join(found)}). Restarting fresh would overwrite "
-                "these; move them away or point the run at a new save_dir.")
+                f"{', '.join(self._found())}). Restarting fresh would "
+                "overwrite these; move them away or point the run at a new "
+                "save_dir.")

@@ -1,7 +1,7 @@
-"""PNG on ``zlib``: an 8-bit grayscale writer for the GAN's sample strips,
-and a reader that decodes any PNG, interlaced (Adam7) or not, to 8-bit
-grey as ``cv2.imread(path, 0)`` does (the port uses neither OpenCV nor
-PIL)."""
+"""PNG on ``zlib``: 8-bit grayscale and RGB writers (the GAN's sample
+strips, the dataset dump, the plots and the heatmap), and a reader that
+decodes any PNG, interlaced (Adam7) or not, to 8-bit grey as
+``cv2.imread(path, 0)`` does (the port uses neither OpenCV nor PIL)."""
 
 from __future__ import annotations
 
@@ -27,22 +27,38 @@ def _chunk(tag: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
 
-def write_png_gray(path: str, img: np.ndarray) -> None:
-    """Write ``img`` (``[H, W]`` uint8) as a grayscale PNG: one IDAT chunk,
-    every row unfiltered (filter byte 0), through a temporary file and an
-    atomic replace."""
-    img = np.ascontiguousarray(img, np.uint8)
-    if img.ndim != 2:
-        raise ValueError(f"expected [H, W] uint8, got shape {img.shape}")
-    H, W = img.shape
-    raw = np.concatenate([np.zeros((H, 1), np.uint8), img], axis=1)
+def _write_png(path: str, img: np.ndarray, colour_type: int) -> None:
+    """``img`` ``[H, W, samples]`` uint8 as an 8-bit PNG of
+    ``colour_type``: one IDAT chunk, every row unfiltered (filter byte 0),
+    through a temporary file and an atomic replace."""
+    H, W = img.shape[:2]
+    raw = np.concatenate([np.zeros((H, 1), np.uint8), img.reshape(H, -1)],
+                         axis=1)
     data = (_SIGNATURE
-            + _chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 0, 0, 0, 0))
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, colour_type,
+                                          0, 0, 0))
             + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
             + _chunk(b"IEND", b""))
     with open(path + ".tmp", "wb") as f:
         f.write(data)
     os.replace(path + ".tmp", path)
+
+
+def write_png_gray(path: str, img: np.ndarray) -> None:
+    """Write ``img`` (``[H, W]`` uint8) as a grayscale PNG (colour type 0)."""
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim != 2:
+        raise ValueError(f"expected [H, W] uint8, got shape {img.shape}")
+    _write_png(path, img, 0)
+
+
+def write_png_rgb(path: str, img: np.ndarray) -> None:
+    """Write ``img`` (``[H, W, 3]`` uint8, RGB) as a truecolour PNG (colour
+    type 2)."""
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"expected [H, W, 3] uint8, got shape {img.shape}")
+    _write_png(path, img, 2)
 
 
 def _unfilter_rows(raw: np.ndarray, filters: np.ndarray) -> np.ndarray:
@@ -123,15 +139,12 @@ def _pass_samples(flat: np.ndarray, pos: int, W: int, H: int, depth: int,
     return px, end
 
 
-def read_png_gray(path: str) -> np.ndarray:
-    """The pixels ``[H, W]`` uint8 of a PNG, as ``cv2.imread(path, 0)``
-    gives them: every filter type, bit depths 1-16, colour types 0/2/3/4/6
-    and Adam7 interlacing (each pass unfiltered on its own, then scattered
-    into place); alpha dropped (not composited); 1/2/4-bit grey scaled to
-    0..255; colour to grey with libpng's fixed-point 0.299/0.587 weights (a
-    grey pixel, R = G = B, kept as it is; 8-bit rounds down, 16-bit rounds
-    to nearest); 16 bits to 8 by the high byte, after the grey
-    conversion."""
+def _decode(path: str):
+    """``(samples [H, W, 3 or 1] int64, depth)`` of a PNG: every filter
+    type, bit depths 1-16, colour types 0/2/3/4/6 and Adam7 interlacing
+    (each pass unfiltered on its own, then scattered into place); a palette
+    expanded to RGB, alpha dropped (not composited), 1/2/4-bit grey scaled
+    to 0..255."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _SIGNATURE:
@@ -177,6 +190,16 @@ def read_png_gray(path: str) -> np.ndarray:
         px = px * (255 // ((1 << depth) - 1))
     if px.shape[-1] in (2, 4):                              # drop alpha
         px = px[..., :-1]
+    return px, depth
+
+
+def read_png_gray(path: str) -> np.ndarray:
+    """The pixels ``[H, W]`` uint8 of a PNG (any that :func:`_decode`
+    reads), as ``cv2.imread(path, 0)`` gives them: colour to grey with
+    libpng's fixed-point 0.299/0.587 weights (a grey pixel, R = G = B, kept
+    as it is; 8-bit rounds down, 16-bit rounds to nearest); 16 bits to 8 by
+    the high byte, after the grey conversion."""
+    px, depth = _decode(path)
     if px.shape[-1] == 3:
         r, g, b = px[..., 0], px[..., 1], px[..., 2]
         mix = _RED * r + _GREEN * g + _BLUE * b
@@ -188,3 +211,14 @@ def read_png_gray(path: str) -> np.ndarray:
     if depth == 16:
         gray = gray >> 8
     return np.ascontiguousarray(gray, np.uint8)
+
+
+def read_png_rgb(path: str) -> np.ndarray:
+    """The pixels ``[H, W, 3]`` uint8 RGB of a PNG (any that
+    :func:`_decode` reads; grey repeated in each channel, 16 bits to 8 by
+    the high byte)."""
+    px, depth = _decode(path)
+    if depth == 16:
+        px = px >> 8
+    return np.ascontiguousarray(np.broadcast_to(
+        px, px.shape[:2] + (3,)), np.uint8)

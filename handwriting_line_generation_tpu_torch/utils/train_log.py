@@ -1,12 +1,14 @@
 """Training log: a copy of ``handwriting_line_generation_tpu/utils/
 train_log.py``'s ``TrainLog``.  Periodic entries keyed by iteration,
-rolling averages over a window, ``sec_per_iter``, JSON / CSV / plot export.
-In a multi-process run only rank 0 writes the JSON.
+rolling averages over a window, ``sec_per_iter``, JSON / CSV / plot export
+(the plot on ``utils/raster_plot.py``'s canvas, not matplotlib).  In a
+multi-process run only rank 0 writes the JSON.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import time
 from collections import defaultdict, deque
@@ -91,20 +93,41 @@ class TrainLog:
             for e in self.entries:
                 f.write(",".join(str(e.get(k, "")) for k in keys) + "\n")
 
-    def plot(self, path: str, keys: Optional[List[str]] = None) -> None:
-        """Loss-curve PNG export (needs matplotlib)."""
-        import matplotlib
-        matplotlib.use("Agg")
-        import matplotlib.pyplot as plt
+    def plot(self, path: str, keys: Optional[List[str]] = None) -> Dict:
+        """Loss curves as a 1000 x 600 RGB PNG (the JAX figure's 10 x 6 in
+        at 100 dpi), drawn on ``utils/raster_plot.py``'s canvas: one
+        polyline a key (``keys``, else every key but ``iteration``,
+        sorted) through its entries' ``(iteration, value)``, non-finite
+        and non-numeric values left out, in matplotlib's ``tab10`` cycle
+        in key order (a key with no samples takes no colour; a key with one
+        sample is a dot), a legend in the corner with the fewest samples and
+        the "iteration" label.  Returns ``{key: (xs, ys, colour)}``."""
+        from handwriting_line_generation_tpu_torch.utils.colormap import \
+            TAB10
+        from handwriting_line_generation_tpu_torch.utils.raster_plot import (
+            Canvas, data_limits,
+        )
         keys = keys or sorted({k for e in self.entries
                                for k in e if k != "iteration"})
-        fig, ax = plt.subplots(figsize=(10, 6))
+        curves = {}
         for k in keys:
-            xs = [e["iteration"] for e in self.entries if k in e]
-            ys = [e[k] for e in self.entries if k in e]
-            if xs:
-                ax.plot(xs, ys, label=k)
-        ax.set_xlabel("iteration")
-        ax.legend(fontsize=7)
-        fig.savefig(path, dpi=100)
-        plt.close(fig)
+            pts = [(e["iteration"], e[k]) for e in self.entries
+                   if isinstance(e.get(k), (int, float))
+                   and not isinstance(e[k], bool) and math.isfinite(e[k])]
+            if pts:
+                xs, ys = map(list, zip(*pts))
+                curves[k] = (xs, ys, TAB10[len(curves) % 10])
+        canvas = Canvas(1000, 600,
+                        data_limits([x for c in curves.values()
+                                     for x in c[0]]),
+                        data_limits([y for c in curves.values()
+                                     for y in c[1]]))
+        for xs, ys, color in curves.values():
+            canvas.polyline(xs, ys, color)
+        canvas.frame(xlabel="iteration")
+        canvas.legend([(k, c[2], "line") for k, c in curves.items()],
+                      avoid=canvas.transform(
+                          [x for c in curves.values() for x in c[0]],
+                          [y for c in curves.values() for y in c[1]]))
+        canvas.save(path)
+        return curves

@@ -3,6 +3,7 @@
 numpy params; plus the port's package boundary (no JAX imports, explicit
 devices)."""
 
+import json
 import pathlib
 import subprocess
 import sys
@@ -209,7 +210,10 @@ HWR_MODULES = ("ops.ctc", "ops.augment", "models.hwr", "training.hwr_trainer",
                "inference.quality", "inference.load", "ops.masks",
                "analysis.mturk", "get_styles", "generate", "evaluate",
                "eval_writer_id", "play_styles", "parse_mturk",
-               "parallel.mesh", "ops.rows", "graft_entry")
+               "parallel.mesh", "ops.rows", "graft_entry", "umap_styles",
+               "graph", "inspect_dataset", "utils.colormap",
+               "utils.raster_plot", "scripts.compile_text_corpus",
+               "scripts.summarize_quality")
 
 
 def test_port_imports_no_jax():
@@ -232,6 +236,53 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_plot_and_dump_clis_import_no_jax(tmp_path):
+    """``umap_styles --thumbnails``, ``graph --csv``, ``play_styles
+    --heatmap`` and ``inspect_dataset --augment`` run in a fresh process
+    (on the CPU, the mini-IAM fixture): jax, flax, cv2, PIL, matplotlib
+    and the JAX package stay out of sys.modules."""
+    from handwriting_line_generation_tpu_torch.config import load_config
+    cfg = load_config(str(REPO / "configs" / "iam_gan_paper.json"))
+    cfg.data.data_dir = str(REPO / "tests" / "fixtures" / "mini_iam")
+    (tmp_path / "cfg.json").write_text(json.dumps(cfg.to_dict()))
+    (tmp_path / "log.json").write_text(json.dumps(
+        [{"iteration": i, "loss": 1.0 / i} for i in range(1, 6)]))
+    (tmp_path / "thumbs").mkdir()
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        f"from {PKG} import graph, inspect_dataset, play_styles, "
+        "umap_styles\n"
+        f"from {PKG}.inference.styles import save_styles\n"
+        f"from {PKG}.utils.png import write_png_gray\n"
+        f"t = {str(tmp_path)!r}\n"
+        "rng = np.random.default_rng(0)\n"
+        "save_styles(t + '/bank.npz', {'styles': rng.normal(size=(6, 4)),\n"
+        "    'authors': list('aabbcc'), 'ids': list('uvwxyz')})\n"
+        "write_png_gray(t + '/thumbs/u.png', np.zeros((8, 16), np.uint8))\n"
+        "calls = [\n"
+        "    (umap_styles, [t + '/bank.npz', '-o', t + '/m.png',\n"
+        "                   '--thumbnails', t + '/thumbs']),\n"
+        "    (graph, [t + '/log.json', '-o', t + '/c.png', '--csv',\n"
+        "             t + '/c.csv']),\n"
+        "    (play_styles, [t + '/bank.npz', '--heatmap', t + '/h.png',\n"
+        "                   '--device', 'cpu']),\n"
+        "    (inspect_dataset, ['-c', t + '/cfg.json', '-n', '1', '-o',\n"
+        "                       t + '/dump', '--augment', '--device', "
+        "'cpu'])]\n"
+        "rcs = [m.main(a) for m, a in calls]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'flax', 'cv2', 'PIL', 'matplotlib',\n"
+        "        'handwriting_line_generation_tpu')]\n"
+        "print(rcs, bad)\n"
+        "sys.exit(1 if bad or any(rcs) else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    for name in ("m.png", "c.png", "c.csv", "h.png", "dump/gt.txt"):
+        assert (tmp_path / name).exists(), name
 
 
 def test_port_sources_name_no_jax():

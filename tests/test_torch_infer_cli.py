@@ -335,9 +335,20 @@ def test_eval_writer_id_and_play_styles(bank, metric, capsys):
 
 
 def test_play_styles_heatmap_not_ported(bank, tmp_path):
-    with pytest.raises(NotImplementedError, match="applyColorMap"):
-        play_styles.main([bank[0], "--heatmap", str(tmp_path / "h.png"),
-                          "--device", "cpu"])
+    """``--heatmap`` once raised here (it needed OpenCV's
+    ``applyColorMap``); it is ported now: the bank's author-sorted L2
+    distance matrix through OpenCV's VIRIDIS, as ``cv2`` colours it."""
+    path = str(tmp_path / "h.png")
+    assert play_styles.main([bank[0], "--heatmap", path,
+                             "--device", "cpu"]) == 0
+    data = bank[1]
+    s = np.asarray(data["styles"], np.float32)
+    s = s[np.argsort(np.asarray(data["authors"]), kind="stable")]
+    d = np.linalg.norm(s[:, None] - s[None, :], axis=-1)
+    d = (255 * d / max(d.max(), 1e-8)).astype(np.uint8)
+    np.testing.assert_array_equal(
+        cv2.imread(path, cv2.IMREAD_COLOR),
+        cv2.applyColorMap(d, cv2.COLORMAP_VIRIDIS))
 
 
 def test_parse_mturk_matches_jax(tmp_path, capsys):

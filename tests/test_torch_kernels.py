@@ -82,6 +82,18 @@ def test_gen_epilogue_sample_larger_than_a_block(cuda, dtype, y_from, blur):
     _check_epilogue(cuda, dtype, blur, 16, 64, 768, B=2, bias=True)
 
 
+# chip_smoke.py phase 19's thumbnails: the paper generator (dim 256) at T =
+# 64 spaced positions over a 128-style bank, float32, the conv bias folded
+THUMB_CALLS = [(256, 4, 64, False), (128, 8, 64, True), (128, 8, 64, False),
+               (64, 16, 64, True), (64, 16, 64, False), (32, 32, 128, True),
+               (32, 32, 128, False), (16, 64, 256, True)]
+
+
+@pytest.mark.parametrize("C,H,W,blur", THUMB_CALLS)
+def test_gen_epilogue_at_the_thumbnail_shapes(cuda, C, H, W, blur):
+    _check_epilogue(cuda, torch.float32, blur, C, H, W, B=128, bias=True)
+
+
 def test_gen_epilogue_repeats_bit_for_bit(cuda):
     args = _inputs(cuda, 4, 16, 64, 32, torch.bfloat16, seed=1)
     a = ge.block_epilogue(*args, apply_blur=True)
