@@ -210,13 +210,34 @@ Phases, in order; any failure exits non-zero:
     synthetic records, the augmentation on the card; every file decoded by
     the port's reader at its size, no matplotlib, cv2, PIL or JAX in
     ``sys.modules``; each call's seconds;
-20. summary — one JSON line of kernels (the epilogue at generation, on
-    the evaluation path, on phase 18's paths and at phase 19's
-    thumbnails; the CTC kernel once for
+20. bf16 mixed-precision training (``model.compute_dtype = "bfloat16"``,
+    TF32 off) — (a) phase 7's HWR path in bf16: 30 steps and an eval
+    step, finite and falling loss, 31 CTC launches, one step through the
+    kernel against the plain CTC (deterministic algorithms), every
+    parameter and Adam moment float32; (b) phase 10's autoencoder path in
+    bf16 the same way (30 steps, a validation, 32 launches, the resume);
+    (c) two GAN cycles in bf16 on phases 7 and 10's checkpoints as phase
+    11 holds them (finite losses, every ``u`` moved and of unit norm, the
+    frozen recognizer and encoder bit-unchanged, 8 launches, a gen and an
+    auto lesson against the plain CTC), parameters, moments and ``u``'s
+    float32; (d) phase 14's float32 ``iam_gan_paper`` run continued by
+    the train CLI with ``-r -a model.compute_dtype=bfloat16`` for 14
+    lessons beside a float32 continuation from a copy of the same
+    checkpoint, each bf16 loss within the float32 run's min-max band
+    widened by its spread (JAX's criterion for its bf16 continuation),
+    8 launches each; then ``get_styles`` and ``generate -m render`` of the
+    bf16 checkpoint in bf16 through the epilogue kernel (9 launches,
+    against the plain path within the bf16 bound; the kernel against its
+    plain version at the render's shapes); (e) ms per HWR and autoencoder
+    step and per GAN cycle in float32 with TF32 off, on, and in bf16
+    (``trace_train.by_precision``);
+21. summary — one JSON line of kernels (the epilogue at generation, on
+    the evaluation path, on phase 18's paths, at phase 19's thumbnails
+    and at phase 20's render; the CTC kernel once for
     each path that runs it, with that path's launches and main-bucket
     times; the CLI's stages, the distributed runs' ranks, the pipeline's
-    stages and phase 18's recognizers at their own shapes), then the
-    device line last.
+    stages, phase 18's recognizers at their own shapes and phase 20's
+    bf16 paths), then the device line last.
 
 Imports nothing of JAX.  Exits non-zero without a CUDA device.
 """
@@ -276,6 +297,18 @@ TRAIN_STEPS = 30
 # tensor's largest entry: the same forward, but cuDNN may pick other
 # backward algorithms (other summation orders, atomics) for the two runs
 TRAIN_GRAD_RTOL = 1e-3
+# the same in bf16 (phase 20): the kernel's gradient of the log-probs is
+# the plain CTC's to float32 precision (held within 1e-3 of its max), but
+# where it differs in the last float32 bits a bf16 rounding in the backward
+# may flip, by one bf16 unit (2^-8 of the value), and flips compound
+# through the bf16 layers of the backward (a tensor of a GAN group up to
+# 2.8e-2 off at its max): the parameter gradients are held in relative L2
+# over the step's tensors within one bf16 unit (measured ~9e-4), and a GAN
+# lesson's groups, whose CTC gradient crosses the recognizer and the
+# generator (~25 bf16 layers), within eight (measured 3.1e-3 to 1.0e-2 in
+# three calls: the state before the check differs call to call)
+BF16_GRAD_L2 = 2 ** -8
+BF16_GAN_GRAD_L2 = 2 ** -5
 # styles of the same lines on the card and on the CPU (TF32 off), max abs
 # difference over max |style|: the recognizer's and the trunk's f32 convs
 # sum in other orders on the two devices
@@ -441,10 +474,13 @@ def check_ctc(torch, ctc, T, L, seed, batch=CTC_BATCH):
     return max(e_nll, e_grad)
 
 
-def train_main_path(torch, tt, ctc, HWRTrainer, load_config):
+def train_main_path(torch, tt, ctc, HWRTrainer, load_config,
+                    dtype="float32"):
     """30 train steps and 1 eval step of the HWR trainer through the CTC
-    kernel.  Returns (launches, trainer, batch on the card)."""
+    kernel, the model in ``dtype``.  Returns (launches, trainer, batch on
+    the card)."""
     cfg = load_config(str(HWR_CONFIG))
+    cfg.model.compute_dtype = dtype
     print(f"training config {HWR_CONFIG.name}: hwr {cfg.model.hwr.kind}/"
           f"{cfg.model.hwr.norm}, augmentation {cfg.data.augmentation}, "
           f"lr {cfg.optimizer.lr}, betas {cfg.optimizer.betas}, "
@@ -479,31 +515,82 @@ def train_main_path(torch, tt, ctc, HWRTrainer, load_config):
     return launches, tr, batch
 
 
-def check_train_grads(torch, ctc, HWRTrainer, load_config, batch):
+def check_train_grads(torch, ctc, HWRTrainer, load_config, batch,
+                      dtype="float32"):
     """One step's loss and gradients through the kernel and through the
-    plain CTC, from the same weights and batch, augmentation off."""
+    plain CTC, from the same weights and batch, augmentation off, the
+    model in ``dtype`` (bf16 with deterministic cuDNN algorithms: a bf16
+    gradient's rounding would show another algorithm's summation order)."""
     cfg = load_config(str(HWR_CONFIG))
     cfg.data.augmentation = None
+    cfg.model.compute_dtype = dtype
     tr = HWRTrainer(cfg, device=DEVICE)
     tr.init_state(seed=0)
     params = list(tr.model.parameters())
-    loss_k, logp = tr.loss(*batch)
-    g_k = torch.autograd.grad(loss_k, params, retain_graph=True)
-    B, T, _ = logp.shape
-    loss_p = ctc.ctc_loss(logp, batch[1], torch.full((B,), T, device=DEVICE),
-                          batch[2])
-    g_p = torch.autograd.grad(loss_p, params)
+    with _deterministic(torch, dtype != "float32"):
+        loss_k, logp = tr.loss(*batch)
+        g_k = torch.autograd.grad(loss_k, [logp] + params, retain_graph=True)
+        B, T, _ = logp.shape
+        loss_p = ctc.ctc_loss(logp, batch[1],
+                              torch.full((B,), T, device=DEVICE), batch[2])
+        g_p = torch.autograd.grad(loss_p, [logp] + params)
+    _grads_agree(loss_k, loss_p, g_k, g_p, dtype, "one step")
+
+
+class _deterministic:
+    """cuDNN's deterministic algorithms and torch's deterministic mode
+    while ``on``."""
+
+    def __init__(self, torch, on=True):
+        self.torch, self.on = torch, on
+
+    def __enter__(self):
+        if self.on:
+            self.torch.backends.cudnn.deterministic = True
+            self.torch.use_deterministic_algorithms(True, warn_only=True)
+
+    def __exit__(self, *exc):
+        if self.on:
+            self.torch.backends.cudnn.deterministic = False
+            self.torch.use_deterministic_algorithms(False)
+
+
+def _rel_max(a, b):
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def _rel_l2(got, want):
+    num = sum(float((a.double() - b.double()).square().sum())
+              for a, b in zip(got, want))
+    den = sum(float(b.double().square().sum()) for b in want)
+    return math.sqrt(num / den) if den > 0 else math.sqrt(num)
+
+
+def _grads_agree(loss_k, loss_p, g_k, g_p, dtype, what):
+    """A step's loss and gradients (the log-probs' first, then each
+    parameter's) through the kernel against the plain CTC; raises past
+    the bounds (each parameter tensor within ``TRAIN_GRAD_RTOL`` of its
+    max; in bf16 the parameters within ``BF16_GRAD_L2`` in relative
+    L2)."""
     rel_loss = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
-    worst = max(((a - b).abs().max() / b.abs().max()).item()
-                for a, b in zip(g_k, g_p))
-    ok = rel_loss <= 1e-5 and worst <= TRAIN_GRAD_RTOL
-    print(f"one step, kernel vs plain CTC: loss {loss_k.item():.6f} vs "
-          f"{loss_p.item():.6f} (rel {rel_loss:.2e}, bound 1e-5); worst "
-          f"parameter gradient max abs diff / max abs {worst:.2e} (bound "
-          f"{TRAIN_GRAD_RTOL}) {'ok' if ok else 'FAIL'}", flush=True)
+    d_logp = _rel_max(g_k[0], g_p[0])
+    worst = max(_rel_max(a, b) for a, b in zip(g_k[1:], g_p[1:]))
+    l2 = _rel_l2(g_k[1:], g_p[1:])
+    ok = rel_loss <= 1e-5 and d_logp <= TRAIN_GRAD_RTOL and (
+        worst <= TRAIN_GRAD_RTOL if dtype == "float32"
+        else l2 <= BF16_GRAD_L2)
+    bounds = (f"bound {TRAIN_GRAD_RTOL}; relative L2 {l2:.2e}"
+              if dtype == "float32" else
+              f"relative L2 {l2:.2e}, bound {BF16_GRAD_L2:.3g}")
+    print(f"{what} ({dtype}), kernel vs plain CTC: loss "
+          f"{loss_k.item():.6f} vs {loss_p.item():.6f} (rel {rel_loss:.2e}, "
+          f"bound 1e-5); log-probs' gradient max abs diff / max abs "
+          f"{d_logp:.2e} (bound {TRAIN_GRAD_RTOL}); worst parameter "
+          f"gradient {worst:.2e} ({bounds}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
-        raise AssertionError("training step through the kernel disagrees "
-                             "with the plain CTC")
+        raise AssertionError(f"{what} through the kernel disagrees with "
+                             f"the plain CTC")
 
 
 def time_train(tt, tr, batch, iters=10, warmup=3):
@@ -702,14 +789,16 @@ def _args(batch):
     return [batch[k] for k in ("image", "label", "label_lengths", "width")]
 
 
-def auto_main_path(torch, ctc, ta, load_config, run_dir):
+def auto_main_path(torch, ctc, ta, load_config, run_dir, dtype="float32"):
     """30 steps of ``AutoTrainer.train`` with a validation over 2 batches
-    at the end, checkpoints in ``run_dir``; then a fresh trainer resumes
-    from ``checkpoint-latest`` and its next step is held against the first
-    trainer's.  Returns (CTC launches, trainer, batch)."""
+    at the end, checkpoints in ``run_dir``, the model in ``dtype``; then a
+    fresh trainer resumes from ``checkpoint-latest`` and its next step is
+    held against the first trainer's.  Returns (CTC launches, trainer,
+    batch)."""
     from handwriting_line_generation_tpu_torch.training.auto_trainer import \
         AutoTrainer
     cfg = load_config(str(AUTO_CONFIG))
+    cfg.model.compute_dtype = dtype
     ae = cfg.autoencoder
     print(f"autoencoder config {AUTO_CONFIG.name}: kind {ae.kind}, "
           f"{ae.hwr_classes} classes, lr {cfg.optimizer.lr}, betas "
@@ -774,31 +863,24 @@ def auto_main_path(torch, ctc, ta, load_config, run_dir):
     return launches, tr, batch
 
 
-def check_auto_grads(torch, ctc, ta, batch):
+def check_auto_grads(torch, ctc, ta, batch, dtype="float32"):
     """One step's loss and gradients through the kernel and through the
-    plain CTC, from the same weights, batch and dropout masks."""
-    tr = ta.trainer(DEVICE)
+    plain CTC, from the same weights, batch and dropout masks, the model
+    in ``dtype`` (bf16 with deterministic algorithms, as
+    ``check_train_grads``)."""
+    tr = ta.trainer(DEVICE, dtype=dtype)
     params = list(tr.model.parameters())
-    loss_k, aux = tr.loss(*_args(batch))
-    g_k = torch.autograd.grad(loss_k, params, retain_graph=True)
-    logp = aux["logp"]
-    B, T, _ = logp.shape
-    loss_p = tr.w_auto * aux["autoLoss"] + tr.w_recog * ctc.ctc_loss(
-        logp, batch["label"], torch.full((B,), T, device=DEVICE),
-        batch["label_lengths"])
-    g_p = torch.autograd.grad(loss_p, params)
-    rel_loss = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
-    worst = max(((a - b).abs().max() / b.abs().max()).item()
-                for a, b in zip(g_k, g_p))
-    ok = rel_loss <= 1e-5 and worst <= TRAIN_GRAD_RTOL
-    print(f"autoencoder step, kernel vs plain CTC (T={T}): loss "
-          f"{loss_k.item():.6f} vs {loss_p.item():.6f} (rel {rel_loss:.2e}, "
-          f"bound 1e-5); worst parameter gradient max abs diff / max abs "
-          f"{worst:.2e} (bound {TRAIN_GRAD_RTOL}) {'ok' if ok else 'FAIL'}",
-          flush=True)
-    if not ok:
-        raise AssertionError("autoencoder step through the kernel disagrees "
-                             "with the plain CTC")
+    with _deterministic(torch, dtype != "float32"):
+        loss_k, aux = tr.loss(*_args(batch))
+        logp = aux["logp"]
+        g_k = torch.autograd.grad(loss_k, [logp] + params, retain_graph=True)
+        B, T, _ = logp.shape
+        loss_p = tr.w_auto * aux["autoLoss"] + tr.w_recog * ctc.ctc_loss(
+            logp, batch["label"], torch.full((B,), T, device=DEVICE),
+            batch["label_lengths"])
+        g_p = torch.autograd.grad(loss_p, [logp] + params)
+    _grads_agree(loss_k, loss_p, g_k, g_p, dtype,
+                 f"autoencoder step (T={T})")
 
 
 def auto_phase(torch, tt, F, ctc, ta, load_config, card, run_dir):
@@ -838,20 +920,30 @@ def _gan_restore(tr, snap):
     tr.text.rng.bit_generator.state = text
 
 
-def check_gan_grads(torch, ctc, tr, batch):
+def check_gan_grads(torch, ctc, tr, batch, bf16=False):
     """A gen lesson's saved groups and an auto lesson's groups and merged
     update, each lesson run twice from the same state and draws, with
     deterministic cuDNN algorithms (so that the CTC is all that differs):
-    through the kernel, then through the plain CTC.  Returns the worst
-    relative difference."""
+    through the kernel, then through the plain CTC: the gradient the CTC
+    hands the log-probs within ``TRAIN_GRAD_RTOL`` of its max, and each
+    group's tensors within ``GAN_GRAD_RTOL`` of their max (in bf16, each
+    group within ``BF16_GAN_GRAD_L2`` in relative L2).  Returns the worst
+    relative difference held."""
     from handwriting_line_generation_tpu_torch.training import \
         gan_trainer as gt_mod
     kernel_ctc = gt_mod.ctc_loss_fast
+    caught = []
 
     def plain_ctc(logp, label, lens):
         B, T, _ = logp.shape
         return ctc.ctc_loss(logp, label, torch.full((B,), T,
                                                     device=logp.device), lens)
+
+    def catching(route):
+        def fn(logp, *a):
+            logp.register_hook(caught.append)
+            return route(logp, *a)
+        return fn
 
     def gen_lesson():
         tb = tr.text.get_batch(label_len=max(tr.cfg.data.label_buckets))
@@ -868,45 +960,51 @@ def check_gan_grads(torch, ctc, tr, batch):
             ("auto", auto_lesson, ("main_g", "adv_g", "recog_g",
                                    "merged"))):
         snap = _gan_snapshot(tr)
-        outs = []
+        outs, caught[:] = [], []
         for route in (kernel_ctc, plain_ctc):
             _gan_restore(tr, snap)
-            gt_mod.ctc_loss_fast = route
-            torch.backends.cudnn.deterministic = True
-            torch.use_deterministic_algorithms(True, warn_only=True)
+            gt_mod.ctc_loss_fast = catching(route)
             try:
-                outs.append(lesson())
+                with _deterministic(torch):
+                    outs.append(lesson())
             finally:
                 gt_mod.ctc_loss_fast = kernel_ctc
-                torch.backends.cudnn.deterministic = False
-                torch.use_deterministic_algorithms(False)
         _gan_restore(tr, snap)
+        d_logp = _rel_max(*caught)
+        print(f"{name} lesson, kernel vs plain CTC: the log-probs' gradient "
+              f"max abs diff / max abs {d_logp:.2e} (bound "
+              f"{TRAIN_GRAD_RTOL})", flush=True)
+        if len(caught) != 2 or not d_logp <= TRAIN_GRAD_RTOL:
+            raise AssertionError(f"{name} lesson: the CTC kernel's gradient "
+                                 f"disagrees with the plain CTC's")
         for k in keys:
-            err = max(((a - b).abs().max()
-                       / b.abs().max().clamp(min=1e-30)).item()
-                      for a, b in zip(outs[0][k], outs[1][k])
+            err = max(_rel_max(a, b) for a, b in zip(outs[0][k], outs[1][k])
                       if b.abs().max() > 0)
-            worst = max(worst, err)
+            l2 = _rel_l2(outs[0][k], outs[1][k])
+            worst = max(worst, l2 if bf16 else err)
             print(f"{name} lesson, kernel vs plain CTC: {k} worst tensor "
-                  f"max abs diff / max abs {err:.2e} (bound "
-                  f"{GAN_GRAD_RTOL})", flush=True)
-    if not worst <= GAN_GRAD_RTOL:
+                  f"max abs diff / max abs {err:.2e}"
+                  + (f", relative L2 {l2:.2e} (bound "
+                     f"{BF16_GAN_GRAD_L2:.3g})" if bf16
+                     else f" (bound {GAN_GRAD_RTOL})"), flush=True)
+    if not worst <= (BF16_GAN_GRAD_L2 if bf16 else GAN_GRAD_RTOL):
         raise AssertionError("a GAN lesson's gradients through the kernel "
                              "disagree with the plain CTC")
     return worst
 
 
-def gan_main_path(torch, ctc, tg, hwr_ckpt, auto_ckpt):
+def gan_main_path(torch, ctc, tg, hwr_ckpt, auto_ckpt, dtype="float32"):
     """Two 7-lesson cycles of the paper GAN with its pretrained recognizer
-    and perceptual encoder loaded from the port's own checkpoints.
-    Returns (CTC launches, trainer, batches)."""
+    and perceptual encoder loaded from the port's own checkpoints, the
+    model in ``dtype``.  Returns (CTC launches, trainer, batches)."""
     from handwriting_line_generation_tpu_torch.utils.checkpoint import (
         extract_subtree,
     )
     tr = tg.trainer(DEVICE, seed=0, pretrained_hwr=hwr_ckpt,
-                    encoder_weights=auto_ckpt)
+                    encoder_weights=auto_ckpt, dtype=dtype)
     c = tr.cfg
-    print(f"GAN config {tg.CONFIG.name}: hwr {c.model.hwr.kind}, style "
+    print(f"GAN config {tg.CONFIG.name} ({c.model.compute_dtype}): hwr "
+          f"{c.model.hwr.kind}, style "
           f"{c.model.style.style_dim}, generator {c.model.generator.dim}, "
           f"discriminator {c.model.discriminator.dim}, encoder "
           f"{c.trainer.encoder_type}, augmentation {c.data.augmentation}, "
@@ -3515,6 +3613,205 @@ def plots_phase(torch, np, ge, tt, ts, card, gan_log):
     return row
 
 
+# phase 20: bf16 mixed-precision training.  The three trainers with
+# model.compute_dtype = "bfloat16" through the CTC kernel (parameters, Adam
+# moments and the spectral norms' u's float32, log-probs into CTC float32),
+# phase 14's float32 GAN run continued in bf16 beside its float32
+# continuation, the bf16 checkpoint rendered through the epilogue kernel,
+# and the step and cycle times by precision
+BF16_CONT_LESSONS = 14             # lessons of each continuation
+BF16_RENDER_LINES = 4
+
+
+def _f32_state(torch, tensors, what):
+    """Raise unless every tensor is float32; returns their number."""
+    bad = [i for i, t in enumerate(tensors) if t.dtype != torch.float32]
+    if bad or not tensors:
+        raise AssertionError(f"{what}: {len(bad)} of {len(tensors)} tensors "
+                             f"not float32")
+    return len(tensors)
+
+
+def _moments(opt):
+    return [v for st in opt.state_dict()["state"].values()
+            for k, v in st.items() if k.startswith("exp_avg")]
+
+
+def _band_check(runs, step):
+    """JAX's criterion for its bf16 continuation: each bf16 loss within
+    the float32 continuation's min-max band widened by its own spread on
+    both sides.  Returns the worst (distance outside the band / spread)
+    (0 when every loss lies in the band)."""
+    logs = {d: [e for e in entries if e["iteration"] > step]
+            for d, entries in runs.items()}
+    keys = sorted({k for e in logs["float32"] for k in e
+                   if k.endswith("Loss")})
+    worst = 0.0
+    for k in keys:
+        f32 = [e[k] for e in logs["float32"] if k in e]
+        b16 = [e[k] for e in logs["bfloat16"] if k in e]
+        lo, hi = min(f32), max(f32)
+        spread = hi - lo
+        out = max(max(lo - spread - v, v - hi - spread, 0.0) for v in b16)
+        worst = max(worst, out / max(spread, 1e-30))
+        print(f"  {k}: float32 {lo:.5g}..{hi:.5g} (spread {spread:.3g}), "
+              f"bf16 {min(b16):.5g}..{max(b16):.5g} "
+              f"{'in' if out == 0 else 'OUTSIDE'} the widened band",
+              flush=True)
+        if len(b16) != len(f32) or not all(map(math.isfinite, b16)):
+            raise AssertionError(f"{k}: {len(b16)} bf16 entries for "
+                                 f"{len(f32)}, or not finite")
+    return worst
+
+
+def bf16_continuation(torch, np, ge, ctc, tt, card, cli_root, work):
+    """Phase 20 (d): phase 14's float32 ``iam_gan_paper`` run resumed by
+    the train CLI with ``-r -a model.compute_dtype=bfloat16`` for
+    ``BF16_CONT_LESSONS`` lessons, and from a copy of the same checkpoint
+    in float32; the bf16 losses held to the float32 band; then the bf16
+    checkpoint rendered by ``generate -m render`` through the epilogue
+    kernel in bf16, against the plain path.  Returns (CTC launches of the
+    bf16 continuation, the kernels-line entry of the render's epilogue)."""
+    import shutil
+    from handwriting_line_generation_tpu_torch import (
+        generate, get_styles, train as cli,
+    )
+    from handwriting_line_generation_tpu_torch.utils.checkpoint import \
+        load_meta
+    src = cli_root / "iam_gan_paper"
+    step = load_meta(str(src), "checkpoint-latest")["iteration"]
+    fixture = [f"data.data_dir={CLI_FIXTURE}", "data.text_data="]
+    overrides = fixture + [
+        f"model.pretrained_hwr={cli_root}/iam_hwr/checkpoint-latest",
+        f"trainer.encoder_weights={cli_root}/iam_auto_2tight/"
+        "checkpoint-latest", "trainer.log_step=1", "trainer.val_step=0",
+        f"trainer.save_step_minor={BF16_CONT_LESSONS}"]
+    runs, launches = {}, {}
+    for dtype in ("bfloat16", "float32"):
+        dst = work / dtype / "iam_gan_paper"
+        dst.mkdir(parents=True)
+        for f in ("checkpoint-latest.pt", "checkpoint-latest.json",
+                  "train_log.json"):
+            shutil.copy(src / f, dst / f)
+        n, secs, _ = _cli_run(torch, ctc, cli, "iam_gan_paper.json",
+                              work / dtype, overrides + [
+                                  f"model.compute_dtype={dtype}"],
+                              "-r", "-i", str(step + BF16_CONT_LESSONS))
+        runs[dtype] = json.loads((dst / "train_log.json").read_text())
+        launches[dtype] = n
+        meta = load_meta(str(dst), "checkpoint-latest")
+        print(f"continuation in {dtype}: lessons {step + 1}.."
+              f"{step + BF16_CONT_LESSONS}, {secs:.1f} s, checkpoint-latest "
+              f"at {meta['iteration']}, ctc launches {n}", flush=True)
+        if meta["iteration"] != step + BF16_CONT_LESSONS:
+            raise AssertionError(f"the {dtype} continuation stopped early")
+    print(f"bf16 continuation against the float32 one (JAX's criterion: "
+          f"each bf16 loss within the float32 min-max band widened by its "
+          f"spread) {card}:", flush=True)
+    worst = _band_check(runs, step)
+    due = 4 * BF16_CONT_LESSONS // 7
+    if worst > 0 or set(launches.values()) != {due}:
+        raise AssertionError(f"bf16 continuation: a loss outside its band "
+                             f"({worst:.3f} spreads) or CTC launches "
+                             f"{launches} where {due} were due")
+
+    # the bf16 checkpoint rendered through the epilogue kernel, in bf16
+    run16 = work / "bfloat16" / "iam_gan_paper"
+    gen_ov = fixture + ["model.compute_dtype=bfloat16"]
+    base = ["-c", str(REPO / "configs" / "iam_gan_paper.json"), "-k",
+            str(run16), "--device", DEVICE]
+    _cli_call(torch, ge, get_styles, base + _pairs(gen_ov)
+              + ["-o", str(work / "bank")])
+    bank = work / "bank" / f"train_styles_{step + BF16_CONT_LESSONS}.npz"
+    images, seen = {}, []
+    render_mode = generate.render_mode
+
+    def kept(*a, **k):
+        seen.append(render_mode(*a, **k))
+        return seen[-1]
+    for fused in (True, False):
+        ov = gen_ov + [f"model.generator.fused_epilogue={str(fused).lower()}"]
+        with mock.patch.object(generate, "render_mode", kept):
+            _, n, secs = _cli_call(torch, ge, generate, base + [
+                a for o in ov for a in ("--override", o)] + [
+                "-m", "render", "-n", str(BF16_RENDER_LINES), "-s",
+                str(bank), "-o", str(work / f"gen_{fused}")])
+        images[fused] = (seen[-1], n, secs)
+    (img, n, secs), (plain, n_plain, _) = images[True], images[False]
+    mad = float(np.abs(img - plain).mean())
+    print(f"generate -m render of the bf16 checkpoint, bf16: {img.shape}, "
+          f"{secs:.2f} s, epilogue launches {n} (plain path {n_plain}); "
+          f"kernel vs plain path mean abs diff {mad:.3e} (bound "
+          f"{BF16_MEAN_ABS_BOUND}) {card}", flush=True)
+    if n != 9 or n_plain != 0 or not np.isfinite(img).all() \
+            or not mad <= BF16_MEAN_ABS_BOUND:
+        raise AssertionError("the bf16 checkpoint's render through the "
+                             "epilogue kernel")
+    T = img.shape[2] // 4
+    row = epilogue_row(torch, ge, tt, f"gen_epilogue (bf16 continuation's "
+                       f"render, B={BF16_RENDER_LINES} T={T} bfloat16)",
+                       epilogue_calls(t=T), BF16_RENDER_LINES,
+                       torch.bfloat16, n, card)
+    return launches["bfloat16"], row
+
+
+def bf16_phase(torch, np, tt, F, ctc, ge, HWRTrainer, load_config, card,
+               hwr_ckpt, auto_ckpt, cli_root):
+    """Phase 20.  Returns (the CTC launches of each bf16 path, the
+    kernels-line entry of the render's epilogue)."""
+    from handwriting_line_generation_tpu_torch import trace_auto as ta
+    from handwriting_line_generation_tpu_torch import trace_gan as tg
+    t0 = time.perf_counter()
+    tt.set_tf32(False)
+    # (a) the recognizer
+    hwr_n, tr, batch = train_main_path(torch, tt, ctc, HWRTrainer,
+                                       load_config, dtype="bfloat16")
+    check_train_grads(torch, ctc, HWRTrainer, load_config, batch,
+                      dtype="bfloat16")
+    n = _f32_state(torch, list(tr.model.parameters())
+                   + _moments(tr.optimizer), "bf16 HWR trainer")
+    print(f"bf16 HWR trainer: {n} parameters and moments float32", flush=True)
+    del tr
+    # (b) the autoencoder
+    with tempfile.TemporaryDirectory() as d:
+        auto_n, tr, batch = auto_main_path(torch, ctc, ta, load_config, d,
+                                           dtype="bfloat16")
+    check_auto_grads(torch, ctc, ta, batch, dtype="bfloat16")
+    n = _f32_state(torch, list(tr.model.parameters())
+                   + _moments(tr.optimizer), "bf16 autoencoder trainer")
+    print(f"bf16 autoencoder trainer: {n} parameters and moments float32",
+          flush=True)
+    auto_data = _args(batch)
+    del tr
+    torch.cuda.empty_cache()
+    # (c) two GAN cycles
+    gan_n, tr, batches = gan_main_path(torch, ctc, tg, hwr_ckpt, auto_ckpt,
+                                       dtype="bfloat16")
+    check_gan_grads(torch, ctc, tr, next(batches), bf16=True)
+    s = tr.state
+    n = _f32_state(torch, list(s.params) + _moments(s.opt_main.optimizer)
+                   + _moments(s.opt_disc.optimizer)
+                   + [m.u for m in tr.model.discriminator.sn],
+                   "bf16 GAN trainer")
+    print(f"bf16 GAN trainer: {n} parameters, moments and u's float32",
+          flush=True)
+    del tr
+    torch.cuda.empty_cache()
+    # (d) phase 14's float32 run continued in bf16
+    with tempfile.TemporaryDirectory() as d:
+        cont_n, render_row = bf16_continuation(torch, np, ge, ctc, tt, card,
+                                               cli_root, pathlib.Path(d))
+    # (e) times by precision
+    tt.precision_ms(tt.batch(seed=0, device=DEVICE), card)
+    ta.precision_ms(auto_data, card)
+    tg.precision_ms(batches, card, pretrained_hwr=hwr_ckpt,
+                    encoder_weights=auto_ckpt)
+    torch.cuda.empty_cache()
+    print(f"phase 20 (bf16 training): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return dict(hwr=hwr_n, auto=auto_n, gan=gan_n, cont=cont_n), render_row
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3722,7 +4019,6 @@ def main():
                            pathlib.Path(ckpts.name, "cli"))
     gan_log = pathlib.Path(ckpts.name, "cli", "iam_gan_paper",
                            "train_log.json").read_text()
-    ckpts.cleanup()
 
     # 17. the synthetic pipeline: iam3 through the GAN and again (no step),
     # rimes3 through the spaced_loc cache, held against live alignment
@@ -3740,7 +4036,15 @@ def main():
     # the heatmap and the dataset dumps, with no matplotlib or OpenCV
     plot_row = plots_phase(torch, np, ge, tt, ts, card, gan_log)
 
-    # 20. summary
+    # 20. bf16 mixed-precision training: the three trainers through the
+    # CTC kernel, phase 14's GAN run continued in bf16 beside float32 and
+    # its render through the epilogue kernel, the times by precision
+    bf16_n, bf16_render = bf16_phase(
+        torch, np, tt, F, ctc, ge, HWRTrainer, load_config, card,
+        str(hwr_ckpt), str(auto_ckpt), pathlib.Path(ckpts.name, "cli"))
+    ckpts.cleanup()
+
+    # 21. summary
     print(smi)
     # the CTC kernel once per path that runs it: each entry's launches come
     # from that path's run, its times from that path's main bucket
@@ -3752,7 +4056,16 @@ def main():
         ("GAN training", (4,) + GAN_CTC_BUCKETS[0], gan_launches, gan_err,
          gan_t),
         ("GAN training run", (4,) + GAN_CTC_BUCKETS[0], run_launches,
-         gan_err, gan_t)] + cli_rows + dist_rows + pipe_rows
+         gan_err, gan_t)] + cli_rows + dist_rows + pipe_rows + [
+        ("bf16 HWR training", (CTC_BATCH,) + CTC_BUCKETS[CTC_MAIN],
+         bf16_n["hwr"], ctc_err, main_t),
+        ("bf16 autoencoder pretraining",
+         (ta.B,) + AUTO_CTC_BUCKETS[AUTO_CTC_MAIN], bf16_n["auto"], auto_err,
+         auto_t),
+        ("bf16 GAN training", (4,) + GAN_CTC_BUCKETS[0], bf16_n["gan"],
+         gan_err, gan_t),
+        ("bf16 GAN continuation through the CLI", (4,) + GAN_CTC_BUCKETS[0],
+         bf16_n["cont"], gan_err, gan_t)]
     print(json.dumps({"kernels": [main_row, infer] + [{
         "name": f"ctc ({path}, B={b} T={t} L={lab})", "route": "cuda",
         "source": "handwriting_line_generation_tpu_torch/csrc/ctc.cu",
@@ -3761,7 +4074,7 @@ def main():
         "plain_ms": t_["plain_ms"], "bound_ms": t_["bound_ms"],
         "bound_by": t_["bound_by"], "library_ms": t_["library_ms"]}
         for path, (b, t, lab), n, err, t_ in ctc_paths + var_ctc]
-        + var_epi + [plot_row]}))
+        + var_epi + [plot_row, bf16_render]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

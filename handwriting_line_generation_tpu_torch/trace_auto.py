@@ -17,7 +17,9 @@ bucket, so T = W/8 = 128 CTC frames), and prints:
   them (forward and backward), and the rate they reach in the step;
 * over one profiled window of 3 steps, TF32 off: wall time (host clock,
   ending in a synchronize), device busy time, the idle share
-  1 - busy / wall, and device time by kernel group and by kernel.
+  1 - busy / wall, and device time by kernel group and by kernel;
+* ms per train step in each precision (``trace_train.by_precision``):
+  float32 with TF32 off, with TF32 on, and bf16.
 
     python -m handwriting_line_generation_tpu_torch.trace_auto
 
@@ -51,8 +53,10 @@ CONFIG = (pathlib.Path(__file__).resolve().parents[1]
 B = load_config(str(CONFIG)).data.batch_size       # 28
 
 
-def trainer(device, seed: int = 0) -> AutoTrainer:
-    tr = AutoTrainer(load_config(str(CONFIG)), device=device)
+def trainer(device, seed: int = 0, dtype: str = "float32") -> AutoTrainer:
+    cfg = load_config(str(CONFIG))
+    cfg.model.compute_dtype = dtype
+    tr = AutoTrainer(cfg, device=device)
     tr.init_state(seed)
     return tr
 
@@ -60,11 +64,6 @@ def trainer(device, seed: int = 0) -> AutoTrainer:
 def inputs(device, seed: int = 0):
     """``[image u8, label, label_lengths, width]``, ``B`` lines."""
     return tt.batch(seed=seed, device=device, n=B)
-
-
-def _set_tf32(on: bool) -> None:
-    torch.backends.cudnn.allow_tf32 = on
-    torch.backends.cuda.matmul.allow_tf32 = on
 
 
 def layer_times(tr: AutoTrainer, data) -> dict:
@@ -133,13 +132,13 @@ def report(tr: AutoTrainer, data, card: str = "") -> dict:
     """Print the per-layer split, the step time and rate with TF32 off and
     on, the operation count and the profiled window; return them.  Leaves
     TF32 off."""
-    _set_tf32(False)
+    tt.set_tf32(False)
     layers = layer_times(tr, data)
     for k, v in layers.items():
         print(f"  {k:32s} {v:9.3f} ms (B={B}, TF32 off) {card}")
     rates = {}
     for on in (False, True):
-        _set_tf32(on)
+        tt.set_tf32(on)
         ms = event_median_ms(lambda: tr.train_step(*data))
         key = "tf32" if on else "f32"
         rates[f"step_ms_{key}"] = ms
@@ -148,7 +147,7 @@ def report(tr: AutoTrainer, data, card: str = "") -> dict:
               f"f32, TF32 {'on' if on else 'off'}): {ms:.3f} ms, "
               f"{B * 1e3 / ms:.1f} autoencoder-trained lines/s {card}",
               flush=True)
-    _set_tf32(False)
+    tt.set_tf32(False)
     win = profiled_window(tr, data)
     busy = win["busy_ms"]
     print(f"profiled train step: wall {win['wall_ms']:.3f} ms, device busy "
@@ -166,9 +165,24 @@ def report(tr: AutoTrainer, data, card: str = "") -> dict:
             **{k: v for k, v in win.items() if k != "kernels_ms"}}
 
 
+def precision_ms(data, card: str = "") -> dict:
+    """Median ms per train step in each precision; prints the rates."""
+    steps = tt.by_precision(lambda dt: trainer("cuda", dtype=dt),
+                            lambda tr: tr.train_step(*data),
+                            event_median_ms)
+    print(f"autoencoder train step (iam_auto_2tight, B={B}, 64x{tt.W}) by "
+          "precision: " + ", ".join(f"{k} {v:.3f} ms ({B * 1e3 / v:.1f} "
+                                    f"lines/s)" for k, v in steps.items())
+          + f" {card}", flush=True)
+    return steps
+
+
 def main() -> None:
     tr = trainer("cuda")
-    out = report(tr, inputs("cuda"))
+    data = inputs("cuda")
+    out = report(tr, data)
+    del tr
+    out["step_ms_by_precision"] = precision_ms(data)
     print(json.dumps({"batch": B, "width": tt.W, **out,
                       "device": torch.cuda.get_device_name(0)}))
 

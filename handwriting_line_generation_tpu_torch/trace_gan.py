@@ -20,7 +20,9 @@ on seeded u8 glyph lines of 64 x 1024 with labels at 72
   main Adam step;
 * over one profiled cycle, TF32 off: wall time (host clock, ending in a
   synchronize), device busy time, the idle share 1 - busy / wall, and
-  device time by kernel group.
+  device time by kernel group;
+* ms per cycle in each precision (``trace_train.by_precision``): float32
+  with TF32 off, with TF32 on, and bf16, medians of 3 cycles after one.
 
     python -m handwriting_line_generation_tpu_torch.trace_gan
 
@@ -68,10 +70,13 @@ KINDS = ("count", "gen", "auto", "disc")
 
 
 def trainer(device, seed: int = 0, pretrained_hwr: Optional[str] = None,
-            encoder_weights: Optional[str] = None) -> GanTrainer:
-    """The paper config's trainer; ``pretrained_hwr`` / ``encoder_weights``
-    name port checkpoints (seeded weights without them)."""
+            encoder_weights: Optional[str] = None,
+            dtype: str = "float32") -> GanTrainer:
+    """The paper config's trainer in ``dtype``; ``pretrained_hwr`` /
+    ``encoder_weights`` name port checkpoints (seeded weights without
+    them)."""
     cfg = load_config(str(CONFIG))
+    cfg.model.compute_dtype = dtype
     cfg.data.text_data = None           # the sampler's built-in text
     cfg.model.pretrained_hwr = pretrained_hwr
     cfg.trainer.encoder_weights = encoder_weights
@@ -96,11 +101,6 @@ def cycle(tr: GanTrainer, batches, start: int = 0) -> List[Dict]:
     n = len(tr.curriculum.stages[0][1])
     return [tr.run_lesson(tr.curriculum.get_lesson(i), batches, iteration=i)
             for i in range(start, start + n)]
-
-
-def _set_tf32(on: bool) -> None:
-    torch.backends.cudnn.allow_tf32 = on
-    torch.backends.cuda.matmul.allow_tf32 = on
 
 
 def lesson_times(tr: GanTrainer, batches) -> Dict[str, float]:
@@ -205,7 +205,7 @@ def report(tr: GanTrainer, batches, card: str = "") -> Dict:
     endless iterator of image batch dicts.  Leaves TF32 off."""
     out = {}
     for on in (False, True):
-        _set_tf32(on)
+        tt.set_tf32(on)
         key = "tf32" if on else "f32"
         times = lesson_times(tr, batches)
         out[f"lesson_ms_{key}"] = times
@@ -215,7 +215,7 @@ def report(tr: GanTrainer, batches, card: str = "") -> Dict:
               + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
               + f"; {out[f'lines_per_s_{key}']:.1f} GAN-trained lines/s "
               f"{card}", flush=True)
-    _set_tf32(False)
+    tt.set_tf32(False)
     layers = layer_times(tr, next(batches))
     for k, v in layers.items():
         print(f"  {k:48s} {v:9.3f} ms (B={B}, TF32 off) {card}")
@@ -232,10 +232,24 @@ def report(tr: GanTrainer, batches, card: str = "") -> Dict:
             **{k: v for k, v in win.items() if k != "kernels_ms"}}
 
 
+def precision_ms(batches, card: str = "", **weights) -> Dict[str, float]:
+    """Median ms per cycle in each precision (``weights``: the trainers'
+    ``pretrained_hwr`` / ``encoder_weights``); prints the rates."""
+    cycles = tt.by_precision(
+        lambda dt: trainer("cuda", dtype=dt, **weights),
+        lambda tr: cycle(tr, batches), event_median_ms, iters=3, warmup=1)
+    print(f"GAN cycle (iam_gan_paper, B={B}, 64x{tt.W}) by precision: "
+          + ", ".join(f"{k} {v:.3f} ms ({B * 7 * 1e3 / v:.1f} lines/s)"
+                      for k, v in cycles.items()) + f" {card}", flush=True)
+    return cycles
+
+
 def main() -> None:
     tr = trainer("cuda")
     batches = itertools.cycle([batch("cuda", s) for s in range(3)])
     out = report(tr, batches)
+    del tr
+    out["cycle_ms_by_precision"] = precision_ms(batches)
     print(json.dumps({"batch": B, "width": tt.W, **out,
                       "device": torch.cuda.get_device_name(0)}))
 

@@ -13,7 +13,9 @@ group norm, warp augmentation, f32, seeded weights) on a seeded batch of
   share 1 - busy / wall, and device time by kernel group and by kernel;
 * the convolutions' float operations per step, counted from the shapes
   (forward, and three times that for forward + backward), and the rate
-  they reach in the measured step time.
+  they reach in the measured step time;
+* ms per train step in each precision (:func:`by_precision`): float32
+  with TF32 off, with TF32 on, and ``model.compute_dtype = "bfloat16"``.
 
     python -m handwriting_line_generation_tpu_torch.trace_train
 
@@ -46,6 +48,9 @@ from handwriting_line_generation_tpu_torch.training.hwr_trainer import \
 
 CONFIG = pathlib.Path(__file__).resolve().parents[1] / "configs/iam_hwr.json"
 B, W, L = 16, 1024, 72
+# (key, model.compute_dtype, TF32 on): the precisions a step is timed in
+PRECISIONS = (("f32", "float32", False), ("tf32", "float32", True),
+              ("bf16", "bfloat16", False))
 
 # kernel-name substrings -> group, first match wins
 GROUPS = (("ctc kernel", ("ctc_kernel",)),
@@ -121,6 +126,48 @@ def event_ms(fn, iters: int = 10, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def set_tf32(on: bool) -> None:
+    torch.backends.cudnn.allow_tf32 = on
+    torch.backends.cuda.matmul.allow_tf32 = on
+
+
+def trainer(device: str = "cuda", dtype: str = "float32",
+            seed: int = 0) -> HWRTrainer:
+    """The config's trainer in ``dtype``, seeded weights."""
+    cfg = load_config(str(CONFIG))
+    cfg.model.compute_dtype = dtype
+    tr = HWRTrainer(cfg, device=device)
+    tr.init_state(seed=seed)
+    return tr
+
+
+def by_precision(make, run, timer=event_ms, **timer_kw) -> dict:
+    """ms of ``run(trainer)`` (a step, a cycle) by ``timer`` in each of
+    ``PRECISIONS``: ``f32`` (TF32 off), ``tf32`` (the same trainer with
+    cuDNN's and cuBLAS's TF32 on) and ``bf16`` (a ``make("bfloat16")``
+    trainer, TF32 off).  Leaves TF32 off."""
+    out, tr = {}, None
+    for key, dtype, tf32 in PRECISIONS:
+        if key != "tf32":
+            tr = None
+            torch.cuda.empty_cache()
+            tr = make(dtype)
+        set_tf32(tf32)
+        out[key] = timer(lambda: run(tr), **timer_kw)
+    set_tf32(False)
+    return out
+
+
+def precision_ms(data, card: str = "") -> dict:
+    """ms per train step in each precision; prints the rates."""
+    steps = by_precision(lambda dt: trainer("cuda", dt),
+                         lambda tr: tr.train_step(*data))
+    print(f"HWR train step (iam_hwr, B={B}, 64x{W}) by precision: "
+          + ", ".join(f"{k} {v:.3f} ms ({B * 1e3 / v:.1f} lines/s)"
+                      for k, v in steps.items()) + f" {card}", flush=True)
+    return steps
+
+
 def layer_times(tr: HWRTrainer, data) -> dict:
     image, label, lens, width = data
     model, gen = tr.model, tr.generator
@@ -151,10 +198,8 @@ def layer_times(tr: HWRTrainer, data) -> dict:
 
 
 def main() -> None:
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    tr = HWRTrainer(load_config(str(CONFIG)), device="cuda")
-    tr.init_state(seed=0)
+    set_tf32(False)
+    tr = trainer()
     data = batch()
     times = layer_times(tr, data)
     for k, v in times.items():
@@ -189,7 +234,10 @@ def main() -> None:
     print(f"convolutions: {step_flop / 1e12:.3f} TFLOP per step (3x the "
           f"forward), {step_flop / step_ms / 1e9:.1f} TFLOP/s in the "
           f"{step_ms:.3f} ms step (CUDA events)")
+    del tr
+    steps = precision_ms(data)
     print(json.dumps({"batch": B, "width": W, "layers_ms": times,
+                      "step_ms_by_precision": steps,
                       "step_tflop": step_flop / 1e12,
                       "profiled_wall_ms": wall,
                       "busy_ms": busy, "idle_share": 1 - busy / wall,
