@@ -171,7 +171,9 @@ Phases, in order; any failure exits non-zero:
     (every stage skipped, no launch), and ``--family rimes3 --through
     spaced --check-cache`` (the ``spaced_loc`` cache built, every cached
     row equal to the live alignment, a count and an auto lesson with and
-    without the cache giving equal losses and gradient groups, under
+    without the cache giving equal losses and gradient groups, and 7
+    curriculum lessons of two same-seed trainers, one reading the cache and
+    one aligning live, giving equal losses lesson by lesson, under
     deterministic algorithms); then the CTC kernel against its plain
     version and timed at each stage's shape;
 18. every model variant and the JAX checkpoints (f32 and TF32 off unless
@@ -231,7 +233,20 @@ Phases, in order; any failure exits non-zero:
     plain version at the render's shapes); (e) ms per HWR and autoencoder
     step and per GAN cycle in float32 with TF32 off, on, and in bf16
     (``trace_train.by_precision``);
-21. summary — one JSON line of kernels (the epilogue at generation, on
+21. the JAX package's last tools (``PERF.md`` §2, §5) — (a)
+    ``scripts/mfu_report.py``'s report on the GAN cell (``iam_gan_paper``,
+    B = 2 x 2, 64 x 1024 over the mini-IAM fixture, seeded, f32 with TF32
+    off): the auto lesson's FLOPs, ms and MFU, two timed 7-lesson cycles,
+    the generation forward of 512 lines at 500 spaced positions in bf16,
+    the CTC kernel once an auto lesson and 9 epilogue launches a forward
+    (every launch of the run counted), the auto lesson's and an 8-line
+    forward's FLOPs equal on the card and the CPU and the 512-line count
+    64 times the 8-line one, each MFU in (0, 1]; (b) ``trace_gen`` on the
+    bench session: each styled block alone (2, 2, 2, 2, 1 launches, the
+    head 0), the four ``phase_upsample`` x ``fused_epilogue`` arms (9
+    launches with the kernel, 0 without; each render within the bf16
+    bound of the baseline's) and the attribution arms;
+22. summary — one JSON line of kernels (the epilogue at generation, on
     the evaluation path, on phase 18's paths, at phase 19's thumbnails
     and at phase 20's render; the CTC kernel once for
     each path that runs it, with that path's launches and main-bucket
@@ -2777,6 +2792,7 @@ def dist_phase(torch, tt, F, ctc, card, root, cli_root):
 PIPE_CUT = ["data.synthetic_authors=8", "data.synthetic_lines=8"]
 PIPE_STEPS, PIPE_GAN_LESSONS = 20, 14
 PIPE_TIMEOUT = 600                 # s for one pipeline call
+PIPE_TRAJECTORY = 7                # lessons of the cache check's trajectory
 
 
 def _pipeline_start(family, save_dir, *flags):
@@ -2874,7 +2890,8 @@ def _pipeline_runs(load_meta, save_dir, card):
            for n in {**iam, **rimes}}
     # the two families run side by side, each in its own directory
     rimes_job = _pipeline_start("rimes3", save_dir / "rimes3", "--through",
-                                "spaced", "--check-cache")
+                                "spaced", "--check-cache", "--trajectory",
+                                str(PIPE_TRAJECTORY))
     try:
         launches = _iam3_runs(load_meta, save_dir / "iam3", iam, due, card)
     finally:
@@ -2886,12 +2903,17 @@ def _pipeline_runs(load_meta, save_dir, card):
     print(f"pipeline rimes3 through the cache: exit {rc}, {secs:.1f} s; CTC "
           f"launches {rl}; cache against live: {cache['rows']} rows, "
           f"{cache['mismatched_positions']} of {cache['positions']} "
-          f"positions differ; lessons {cache['lessons']} {card}",
+          f"positions differ; lessons {cache['lessons']}; trajectory of "
+          f"{cache['trajectory']['lessons']} lessons with and without it: "
+          f"first unequal {cache['trajectory']['first_unequal']}, largest "
+          f"loss difference {cache['trajectory']['max_loss_diff']} {card}",
           flush=True)
     if rc != 0 or any(rl[n] != [due[n]] for n in rimes) \
             or cache["mismatched_positions"] != 0 or any(
                 v["max_loss_diff"] != 0 or v["max_group_diff"] != 0
-                for v in cache["lessons"].values()):
+                for v in cache["lessons"].values()) \
+            or cache["trajectory"]["lessons"] != PIPE_TRAJECTORY \
+            or cache["trajectory"]["first_unequal"] is not None:
         raise AssertionError("the rimes3 cache differs from live alignment, "
                              "or a stage failed")
 
@@ -3812,6 +3834,176 @@ def bf16_phase(torch, np, tt, F, ctc, ge, HWRTrainer, load_config, card,
     return dict(hwr=hwr_n, auto=auto_n, gan=gan_n, cont=cont_n), render_row
 
 
+# phase 21: the JAX package's last measurement tools on the card.
+# mfu_report's FLOP and MFU accounting on the GAN cell (iam_gan_paper, B = 2
+# x 2, 64 x 1024 over the mini-IAM fixture, seeded weights, f32 with TF32
+# off) and its generation forward; trace_gen's per-block split, variant A/B
+# and attribution on the bench configuration
+MFU_CONFIG = REPO / "configs" / "iam_gan_paper.json"
+MFU_OVERRIDES = [f"data.data_dir={CLI_FIXTURE}", "data.text_data=",
+                 "model.pretrained_hwr=", "trainer.encoder_weights=",
+                 "data.width_buckets=[1024]"]
+MFU_ITERS = 14                     # two timed cycles, 14 timed auto lessons
+MFU_FEW = 8                        # lines of a forward counted on both devices
+TRACE_GEN_ITERS, TRACE_GEN_ROUNDS = 5, 3
+# epilogue launches a block alone: two per styled block, one for the last
+# (its second AdaIN folds into the head), none for the head
+BLOCK_LAUNCHES = [2, 2, 2, 2, 1, 0]
+
+
+def _gen_flops(torch, flops, session, label, n, spaced_len):
+    """One forward of ``n`` copies of ``label`` counted: its FLOPs."""
+    labels = label.repeat(n, 1)
+    lens = torch.full((n,), label.shape[1], dtype=torch.long,
+                      device=labels.device)
+    styles = torch.zeros((n, session.model.cfg.packed_style_dim()),
+                         device=labels.device)
+    with torch.no_grad():
+        _, fl, _ = flops.count(session.forward, labels, lens, styles,
+                               spaced_len=spaced_len, seed=0)
+    return fl
+
+
+def mfu_report_step(torch, np, tt, F, ctc, ge, card):
+    """21.1: ``mfu_report`` on the GAN cell through both kernels; its FLOP
+    counts held against the CPU's at the same config and shapes.  Returns
+    the report and its kernels-line rows."""
+    import copy
+    from handwriting_line_generation_tpu_torch import flops
+    from handwriting_line_generation_tpu_torch.inference.generate import \
+        GenerationSession
+    from handwriting_line_generation_tpu_torch.scripts import mfu_report as mr
+    tt.set_tf32(False)
+    ctc.ctc_loss_cuda.launches = 0
+    ge.block_epilogue.launches = 0
+    rep = mr.report(str(MFU_CONFIG), MFU_OVERRIDES, iters=MFU_ITERS,
+                    gen_batch=MAIN_BATCH, device=DEVICE)
+    n_ctc, n_epi = ctc.ctc_loss_cuda.launches, ge.block_epilogue.launches
+    print("mfu_report (iam_gan_paper, B=2x2, 64x1024, f32, TF32 off): "
+          + json.dumps(rep), flush=True)
+    cycles = MFU_ITERS // 7
+    # the counted auto lesson, a warm-up and the timed cycles (genRecog and
+    # reconRecog twice a cycle), a warm-up and the timed auto lessons; the
+    # counted forward, a warm-up and the timed ones
+    due_ctc = 1 + 4 * (1 + cycles) + 1 + MFU_ITERS
+    due_epi = 9 * (2 + max(MFU_ITERS // 2, 3))
+    # the same counts on the CPU: the auto lesson at the cell's shapes, a
+    # forward of MFU_FEW lines on both devices, and the card's 512 lines as
+    # 512 / MFU_FEW of its MFU_FEW
+    tr, it = mr.trainer(str(MFU_CONFIG), MFU_OVERRIDES, device="cpu")
+    batch = next(it)
+    _, cpu_auto, _ = flops.count(tr.step_auto, *mr.auto_args(tr, batch,
+                                                             False))
+    cpu = mr.generation_session(tr)
+    on_card = GenerationSession(copy.deepcopy(cpu.model), cpu.charset,
+                                device=DEVICE)
+    label = torch.as_tensor(batch["label"][:1]).long()
+    few_cpu = _gen_flops(torch, flops, cpu, label, MFU_FEW,
+                         tr.gen_spaced_len)
+    few = _gen_flops(torch, flops, on_card, label.to(DEVICE), MFU_FEW,
+                     tr.gen_spaced_len)
+    del tr, cpu, on_card
+    torch.cuda.empty_cache()
+    card_auto = rep["auto_step_gflops"] * 1e9
+    card_gen = rep["gen_step_gflops"] * 1e9
+    print(f"mfu_report FLOPs card against CPU: auto lesson {card_auto:.0f} "
+          f"/ {cpu_auto:.0f}; forward of {MFU_FEW} lines {few:.0f} / "
+          f"{few_cpu:.0f}; {MAIN_BATCH} lines {card_gen:.0f} = "
+          f"{MAIN_BATCH // MFU_FEW} x {few:.0f}; CTC launches {n_ctc} "
+          f"(due {due_ctc}), epilogue {n_epi} (due {due_epi}) {card}",
+          flush=True)
+    if (card_auto != cpu_auto or few != few_cpu
+            or card_gen != MAIN_BATCH // MFU_FEW * few):
+        raise AssertionError("a FLOP count differs between the card and "
+                             "the CPU")
+    if (rep["ctc_launches_per_auto_lesson"] != 1
+            or rep["gen_epilogue_launches_per_forward"] != 9
+            or n_ctc != due_ctc or n_epi != due_epi):
+        raise AssertionError("mfu_report's paths missed a kernel")
+    for k in ("auto_mfu", "gen_mfu"):
+        if not 0 < rep[k] <= 1:
+            raise AssertionError(f"mfu_report {k} {rep[k]} outside (0, 1]")
+    B, T, L = rep["batch"], rep["image_w"] // 4, rep["label_len"]
+    err = check_ctc(torch, ctc, T, L, seed=T + L, batch=B)
+    rows = [{"name": f"ctc (mfu_report auto lesson and cycles, B={B} T={T} "
+                     f"L={L})", "route": "cuda",
+             "source": "handwriting_line_generation_tpu_torch/csrc/ctc.cu",
+             "replaces": "handwriting_line_generation_tpu/ops/"
+                         "ctc_pallas.py:60",
+             "launches": n_ctc, "max_abs_err": err,
+             **{k: v for k, v in time_ctc(torch, tt, F, ctc, T, L, card,
+                                          batch=B).items()
+                if k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                         "library_ms")}},
+            epilogue_row(torch, ge, tt, f"gen_epilogue (mfu_report "
+                         f"generation, B={MAIN_BATCH} T={rep['gen_spaced_len']}"
+                         f" bf16)", epilogue_calls(t=rep["gen_spaced_len"]),
+                         MAIN_BATCH, torch.bfloat16, n_epi, card)]
+    return rep, rows
+
+
+def trace_gen_step(torch, tt, ge, card):
+    """21.2: ``trace_gen``'s per-block split, variant A/B and attribution
+    on the bench session, each block's and arm's epilogue launches
+    counted, the A/B renders held against the baseline's.  Returns the
+    three tables and the kernels-line row."""
+    from handwriting_line_generation_tpu_torch import bench, trace_gen
+    session, labels, lens, styles = bench.build(MAIN_BATCH, device=DEVICE)
+    ge.block_epilogue.launches = 0
+    out = {}
+    for what, fn in (("blocks", trace_gen.blocks), ("ab", trace_gen.ab),
+                     ("attribution", trace_gen.attribution)):
+        out[what] = fn(session, labels, lens, styles, TRACE_GEN_ITERS,
+                       TRACE_GEN_ROUNDS)
+        print(f"trace_gen {what} (bench, B={MAIN_BATCH}, bf16): "
+              f"{json.dumps(out[what])} {card}", flush=True)
+    launches = ge.block_epilogue.launches
+    names = list(trace_gen.BLOCK_NAMES) + ["head_equal_conv_tanh"]
+    got = [out["blocks"][n]["epilogue_launches"] for n in names]
+    ab_ok = all(v["epilogue_launches"] == (9 if "fused" in k else 0)
+                and v["mean_abs_vs_baseline"] <= BF16_MEAN_ABS_BOUND
+                for k, v in out["ab"].items())
+    att = out["attribution"]["epilogue_launches"]
+    att_ok = all(n == (0 if k == "noise_draws" else 9)
+                 for k, n in att.items())
+    print(f"trace_gen: block launches {got} (due {BLOCK_LAUNCHES}); A/B "
+          f"renders against the baseline's mean abs "
+          f"{ {k: v['mean_abs_vs_baseline'] for k, v in out['ab'].items()} }"
+          f" (bound {BF16_MEAN_ABS_BOUND}); attribution launches {att}; "
+          f"{launches} launches in all {card}", flush=True)
+    if got != BLOCK_LAUNCHES or not ab_ok or not att_ok:
+        raise AssertionError("trace_gen missed the kernel or an exact "
+                             "variant's render disagrees")
+    del session
+    torch.cuda.empty_cache()
+    row = epilogue_row(torch, ge, tt, f"gen_epilogue (trace_gen blocks, A/B "
+                       f"and attribution, B={MAIN_BATCH} bf16)",
+                       epilogue_calls(t=bench.SPACED_LEN), MAIN_BATCH,
+                       torch.bfloat16, launches, card)
+    return out, row
+
+
+def mfu_phase(torch, np, tt, F, ctc, ge, card):
+    """Phase 21.  Returns its kernels-line rows."""
+    t0 = time.perf_counter()
+    rep, rows = mfu_report_step(torch, np, tt, F, ctc, ge, card)
+    print(f"phase 21 MFU (datasheet peaks, {rep['peak_precision']} "
+          f"{rep['peak_tflops']} TFLOP/s, bf16 {rep['gen_peak_tflops']}): "
+          f"auto lesson {rep['auto_step_gflops']:.1f} GFLOP in "
+          f"{rep['auto_sec_per_step'] * 1e3:.3f} ms, "
+          f"{rep['auto_achieved_tflops']:.3f} TFLOP/s, MFU "
+          f"{rep['auto_mfu']:.4f}; {rep['lessons_per_sec']:.2f} lessons/s; "
+          f"generation {rep['gen_step_gflops']:.1f} GFLOP, "
+          f"{rep['gen_bytes_accessed_gb']:.2f} GB unfused, "
+          f"{rep['gen_sec_per_batch'] * 1e3:.3f} ms, "
+          f"{rep['gen_lines_per_sec']:.1f} lines/s, "
+          f"{rep['gen_achieved_tflops']:.3f} TFLOP/s, MFU "
+          f"{rep['gen_mfu']:.4f} {card}", flush=True)
+    _, row = trace_gen_step(torch, tt, ge, card)
+    print(f"phase 21: {time.perf_counter() - t0:.1f} s", flush=True)
+    return rows + [row]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4044,7 +4236,13 @@ def main():
         str(hwr_ckpt), str(auto_ckpt), pathlib.Path(ckpts.name, "cli"))
     ckpts.cleanup()
 
-    # 21. summary
+    # 21. the JAX package's last tools: mfu_report's FLOPs and MFU of the
+    # GAN's auto lesson and of generation through both kernels, the counts
+    # held against the CPU's; trace_gen's per-block split, variant A/B and
+    # attribution through the epilogue kernel
+    mfu_rows = mfu_phase(torch, np, tt, F, ctc, ge, card)
+
+    # 22. summary
     print(smi)
     # the CTC kernel once per path that runs it: each entry's launches come
     # from that path's run, its times from that path's main bucket
@@ -4074,7 +4272,7 @@ def main():
         "plain_ms": t_["plain_ms"], "bound_ms": t_["bound_ms"],
         "bound_by": t_["bound_by"], "library_ms": t_["library_ms"]}
         for path, (b, t, lab), n, err, t_ in ctc_paths + var_ctc]
-        + var_epi + [plot_row, bf16_render]}))
+        + var_epi + [plot_row, bf16_render] + mfu_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

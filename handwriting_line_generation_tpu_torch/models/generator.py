@@ -34,7 +34,7 @@ Inference only: dropout is the identity.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -207,6 +207,13 @@ class SpacedGenerator(nn.Module):
                 defer_final_adain=True),               # H64 W4T (small: H32)
         ])
         self.to_gray = EqualConv(d // 16, 1, kernel=1)
+        self.small = small
+
+    def noise_shapes(self, T: int) -> List[Tuple[int, int]]:
+        """``(H, W)`` of each block's output, where its two noise planes
+        are drawn, at ``T`` spaced positions."""
+        last = (32, 2 * T) if self.small else (64, 4 * T)
+        return [(4, T), (8, T), (16, T), (32, 2 * T), last]
 
     def forward(self, spaced_onehot: torch.Tensor, style: torch.Tensor,
                 noise: Optional[List[torch.Tensor]] = None,
@@ -232,10 +239,13 @@ class SpacedGenerator(nn.Module):
             x = block(x, style,
                       None if noise is None else noise[2 * i:2 * i + 2],
                       generator, self.fused_epilogue)
-        # the last block returned (x, gamma, beta) before normalization: the
-        # per-channel affine folds exactly into the 1x1 equal conv, so the
-        # normalized 64-row tensor is never materialized
-        x, gamma, beta = x
+        return self.head(*x)
+
+    def head(self, x: torch.Tensor, gamma: torch.Tensor,
+             beta: torch.Tensor) -> torch.Tensor:
+        """The last block's ``(x, gamma, beta)`` before normalization to
+        the image: the per-channel affine folds exactly into the 1x1 equal
+        conv, so the normalized 64-row tensor is never materialized."""
         mean, rstd = instance_stats(x)
         mean, rstd = mean[:, :, 0, 0], rstd[:, :, 0, 0]            # [B, C]
         g32 = gamma.float() * rstd

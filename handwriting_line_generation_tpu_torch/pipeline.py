@@ -4,7 +4,7 @@ then the GAN that reads both, each through the train CLI.
     python -m handwriting_line_generation_tpu_torch.pipeline \\
         --family iam3|rimes3 [--through hwr|auto|spaced|gan] \\
         [--gan-iterations N] [-a PATH=VALUE ...] [--save-dir DIR] \\
-        [--device cuda] [--check-cache] [--report]
+        [--device cuda] [--check-cache [--trajectory N]] [--report]
 
 Counterpart of ``scripts/run_iam_pipeline3.sh`` and
 ``scripts/run_rimes_pipeline3.sh`` (which stay JAX).  ``iam3``: the text
@@ -36,7 +36,8 @@ pipeline's own paths.  ``--gan-iterations N`` sets the GAN's
 rounded down to a thousand (the bounded budget of the JAX RIMES script),
 over any ``-a`` of the same fields.
 ``--check-cache`` runs :func:`cache_equals_live` on the GAN config and its
-cache after the stages; ``--report`` prints each stage's validation
+cache after the stages, with a trajectory of ``--trajectory`` lessons
+(default 7, one curriculum cycle); ``--report`` prints each stage's validation
 trajectory, wall time, rates and CTC launches from the run directories and
 logs, and trains nothing.
 """
@@ -357,18 +358,21 @@ def live_alignment(trainer, image, batch: Dict):
 
 
 def cache_equals_live(config: str, cache: str, overrides: Sequence[str] = (),
-                      device: str = "cuda", batches: Optional[int] = None
-                      ) -> Dict:
+                      device: str = "cuda", batches: Optional[int] = None,
+                      trajectory: int = 0) -> Dict:
     """The cache against live alignment on one ``GanTrainer`` state: every
     cached row of ``batches`` training batches (default: an epoch) against
     the in-step alignment (the mismatching positions counted), then a
     count and an auto lesson run from one state with the batch's
     ``spaced_label`` and without it (the viterbi of the step): their
-    losses and gradient groups compared.  ``config`` is a config path,
-    ``overrides`` as the train CLI's.  Deterministic algorithms are on
-    throughout (cuBLAS's fixed workspace takes effect in a process that has
-    not used it yet), so the two arms differ in the alignment's source
-    alone.  Returns the counts and the largest differences."""
+    losses and gradient groups compared.  With ``trajectory`` N > 0, also
+    N curriculum lessons of two same-seed trainers, one reading the cache
+    and one aligning live (:func:`cache_trajectory`).  ``config`` is a
+    config path, ``overrides`` as the train CLI's.  Deterministic
+    algorithms are on throughout (cuBLAS's fixed workspace takes effect in
+    a process that has not used it yet), so the two arms differ in the
+    alignment's source alone.  Returns the counts and the largest
+    differences."""
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     from handwriting_line_generation_tpu_torch.config import (
@@ -381,7 +385,10 @@ def cache_equals_live(config: str, cache: str, overrides: Sequence[str] = (),
     torch.use_deterministic_algorithms(True, warn_only=True)
     torch.backends.cudnn.deterministic = True
     try:
-        return _cache_equals_live(cfg, device, batches)
+        report = _cache_equals_live(cfg, device, batches)
+        if trajectory:
+            report["trajectory"] = cache_trajectory(cfg, device, trajectory)
+        return report
     finally:
         torch.use_deterministic_algorithms(was[0])
         torch.backends.cudnn.deterministic = was[1]
@@ -443,6 +450,39 @@ def _cache_equals_live(cfg, device, batches: Optional[int]) -> Dict:
     return report
 
 
+def cache_trajectory(cfg, device: str, n: int) -> Dict:
+    """The ``scripts/spaced_equivalence.py`` stage-2 check: ``n`` lessons
+    of the curriculum (``run_lesson``, as training runs them) by a trainer
+    reading the cache and by a same-seed one aligning live (the config's
+    ``spaced_loc`` cleared), on the same batches and draws.  Each lesson's
+    losses are compared; returns them, the first lesson whose losses
+    differ (None when every one is equal) and the largest difference."""
+    from handwriting_line_generation_tpu_torch.data.datasets import (
+        forever, make_batcher,
+    )
+    from handwriting_line_generation_tpu_torch.training.gan_trainer import \
+        GanTrainer
+    arms = []
+    for cached in (True, False):
+        c = copy.deepcopy(cfg)
+        if not cached:
+            c.data.spaced_loc = None
+        tr = GanTrainer(c, device=device)
+        tr.init_state(c.trainer.seed)
+        it = forever(make_batcher(c.data, "train"), seed=c.trainer.seed)
+        arms.append([{k: float(v) for k, v in tr.run_lesson(
+            tr.curriculum.get_lesson(i), it, iteration=i).items()
+            if k.endswith("Loss")} for i in range(n)])
+    cached, live = arms
+    diffs = [max([abs(a[k] - b[k]) for k in a.keys() & b.keys()]
+                 + [0.0 if a.keys() == b.keys() else math.inf])
+             for a, b in zip(cached, live)]
+    first = next((i for i, (a, b) in enumerate(zip(cached, live))
+                  if a != b), None)
+    return {"lessons": n, "cached": cached, "live": live,
+            "first_unequal": first, "max_loss_diff": max(diffs)}
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m handwriting_line_generation_tpu_torch.pipeline",
@@ -464,6 +504,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--check-cache", action="store_true",
                     help="after the stages, hold the spaced_loc cache "
                          "against live alignment")
+    ap.add_argument("--trajectory", type=int, default=7, metavar="N",
+                    help="with --check-cache, also N lessons with the cache "
+                         "and N aligning live, their losses held equal")
     ap.add_argument("--report", action="store_true",
                     help="print the stages' trajectories and rates only")
     return ap
@@ -483,12 +526,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         raise SystemExit(f"--check-cache: family {a.family} has no cache")
     ov, _ = stage_overrides(p.f.gan, p.save_dir, p.overrides + p.gan_extra)
     t0 = time.perf_counter()
-    res = cache_equals_live(config_path(p.f.gan), p.cache, ov, a.device)
+    res = cache_equals_live(config_path(p.f.gan), p.cache, ov, a.device,
+                            trajectory=a.trajectory)
     p.log(f"cache against live alignment: {json.dumps(res)} "
           f"({time.perf_counter() - t0:.1f} s)")
     ok = res["mismatched_positions"] == 0 and all(
         v["max_loss_diff"] == 0 and v["max_group_diff"] == 0
-        for v in res["lessons"].values())
+        for v in res["lessons"].values()) and (
+        "trajectory" not in res or res["trajectory"]["first_unequal"] is None)
     return 0 if ok else 1
 
 

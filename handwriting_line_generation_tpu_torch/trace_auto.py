@@ -13,8 +13,8 @@ bucket, so T = W/8 = 128 CTC frames), and prints:
   Adam step, and the whole train step;
 * ms per train step and autoencoder-trained lines/s (28 x 1000 / ms), the
   same medians, with TF32 off and then on;
-* the float operations of one step as torch's ``FlopCounterMode`` counts
-  them (forward and backward), and the rate they reach in the step;
+* the float operations of one step, forward and backward, as
+  :mod:`.flops` counts them, and the rate they reach in the step;
 * over one profiled window of 3 steps, TF32 off: wall time (host clock,
   ending in a synchronize), device busy time, the idle share
   1 - busy / wall, and device time by kernel group and by kernel;
@@ -35,8 +35,8 @@ from collections import defaultdict
 
 import torch
 from torch.profiler import ProfilerActivity, profile
-from torch.utils.flop_counter import FlopCounterMode
 
+from handwriting_line_generation_tpu_torch import flops
 from handwriting_line_generation_tpu_torch import trace_train as tt
 from handwriting_line_generation_tpu_torch.config import load_config
 from handwriting_line_generation_tpu_torch.ops import ctc
@@ -97,11 +97,12 @@ def layer_times(tr: AutoTrainer, data) -> dict:
 
 
 def step_flop(tr: AutoTrainer, data) -> float:
-    """Float operations of one step's forward and backward."""
-    with FlopCounterMode(display=False) as counter:
+    """Float operations of one step's forward and backward
+    (:mod:`.flops`)."""
+    def step():
         loss, _ = tr.loss(*data)
         loss.backward()
-    return float(counter.get_total_flops())
+    return flops.count(step)[1]
 
 
 def profiled_window(tr: AutoTrainer, data, n: int = 3) -> dict:
@@ -158,7 +159,7 @@ def report(tr: AutoTrainer, data, card: str = "") -> dict:
                            key=lambda kv: -kv[1])[:15]:
         print(f"  {ms:9.3f} ms  {name[:110]}")
     flop = step_flop(tr, data)
-    print(f"operations: {flop / 1e12:.3f} TFLOP per step (FlopCounterMode, "
+    print(f"operations: {flop / 1e12:.3f} TFLOP per step (flops.py, "
           f"forward + backward), {flop / rates['step_ms_f32'] / 1e9:.1f} "
           f"TFLOP/s in the {rates['step_ms_f32']:.3f} ms step {card}")
     return {"layers_ms": layers, **rates, "step_tflop": flop / 1e12,

@@ -11,9 +11,9 @@ group norm, warp augmentation, f32, seeded weights) on a seeded batch of
 * per step under ``torch.profiler``, over one window of 3 steps: wall
   time (host clock, ending in a synchronize), device busy time, the idle
   share 1 - busy / wall, and device time by kernel group and by kernel;
-* the convolutions' float operations per step, counted from the shapes
-  (forward, and three times that for forward + backward), and the rate
-  they reach in the measured step time;
+* the float operations of one step's forward and backward as
+  :mod:`.flops` counts them, and the rate they reach in the measured step
+  time;
 * ms per train step in each precision (:func:`by_precision`): float32
   with TF32 off, with TF32 on, and ``model.compute_dtype = "bfloat16"``.
 
@@ -34,10 +34,8 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from handwriting_line_generation_tpu_torch import flops
 from handwriting_line_generation_tpu_torch.config import load_config
-from handwriting_line_generation_tpu_torch.models.hwr import (
-    DILATIONS, TRUNK_WIDTHS,
-)
 from handwriting_line_generation_tpu_torch.ops import ctc
 from handwriting_line_generation_tpu_torch.ops.augment import (
     apply_augmentation, dequantize_image,
@@ -72,20 +70,13 @@ def _group(name: str) -> str:
     return "other"
 
 
-def conv_flop(h: int, w: int, num_class: int) -> float:
-    """Float operations of one ``CNNOnlyHWR`` forward's convolutions on a
-    ``h x w`` line (2 per multiply-add; pools, norms and activations are
-    not counted)."""
-    total, cin = 0.0, 1
-    for i, f in enumerate(TRUNK_WIDTHS):
-        total += 2.0 * h * w * cin * f * 9
-        cin = f
-        if i in (0, 1):
-            h, w = h // 2, w // 2
-        elif i in (3, 5):
-            h //= 2
-    total += len(DILATIONS) * 2.0 * w * 512 * 512 * 3
-    return total + 2.0 * w * 512 * num_class * 3
+def step_flop(tr: HWRTrainer, data) -> float:
+    """Float operations of one step's loss forward and backward
+    (:mod:`.flops`)."""
+    def step():
+        loss, _ = tr.loss(*data)
+        loss.backward()
+    return flops.count(step)[1]
 
 
 def batch(seed: int = 0, device: str = "cuda", n: Optional[int] = None):
@@ -230,15 +221,15 @@ def main() -> None:
     for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:15]:
         print(f"  {ms:9.3f} ms  {name[:110]}")
     step_ms = times["train step"]
-    step_flop = 3 * B * conv_flop(64, W, tr.charset.num_class)
-    print(f"convolutions: {step_flop / 1e12:.3f} TFLOP per step (3x the "
-          f"forward), {step_flop / step_ms / 1e9:.1f} TFLOP/s in the "
+    flop = step_flop(tr, data)
+    print(f"operations: {flop / 1e12:.3f} TFLOP per step (flops.py, "
+          f"forward + backward), {flop / step_ms / 1e9:.1f} TFLOP/s in the "
           f"{step_ms:.3f} ms step (CUDA events)")
     del tr
     steps = precision_ms(data)
     print(json.dumps({"batch": B, "width": W, "layers_ms": times,
                       "step_ms_by_precision": steps,
-                      "step_tflop": step_flop / 1e12,
+                      "step_tflop": flop / 1e12,
                       "profiled_wall_ms": wall,
                       "busy_ms": busy, "idle_share": 1 - busy / wall,
                       "groups_ms": dict(groups),

@@ -13,6 +13,7 @@ import torch
 from handwriting_line_generation_tpu.ops import align as J
 from handwriting_line_generation_tpu_torch.ops import align as P
 from handwriting_line_generation_tpu_torch.ops.ctc import mask_frames_to_blank
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 def _log_probs(rng, B, T, C):

@@ -12,6 +12,7 @@ from handwriting_line_generation_tpu.data.datasets import \
     quantize_image_u8 as j_quantize
 from handwriting_line_generation_tpu.ops import augment as J
 from handwriting_line_generation_tpu_torch.ops import augment as P
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 B, H, W = 2, 64, 96
 # Sampling coordinates computed in another order can land one ulp either

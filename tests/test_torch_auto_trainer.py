@@ -33,6 +33,7 @@ from handwriting_line_generation_tpu_torch.training.auto_trainer import \
 from handwriting_line_generation_tpu_torch.training.hwr_trainer import \
     HWRTrainer
 from handwriting_line_generation_tpu_torch.utils import checkpoint as ckpt
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 CONFIGS = pathlib.Path(__file__).resolve().parents[1] / "configs"
 AUTO, HWR = CONFIGS / "iam_auto_2tight.json", CONFIGS / "iam_hwr.json"

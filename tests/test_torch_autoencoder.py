@@ -25,6 +25,7 @@ from handwriting_line_generation_tpu_torch.models.layers import (
 )
 from handwriting_line_generation_tpu_torch.utils.checkpoint import \
     extract_subtree
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 NC = 12
 B, W = 2, 64

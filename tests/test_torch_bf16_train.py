@@ -47,7 +47,7 @@ from handwriting_line_generation_tpu_torch.training import (
     auto_trainer as p_auto, hwr_trainer as p_hwr,
 )
 from test_torch_auto_trainer import _no_dropout as _port_no_dropout
-from test_torch_gan_trainer import _adam_step_bound
+from test_torch_gan_trainer import F64_COMPILE, _adam_step_bound
 from test_torch_jax_resume import (
     CONFIGS as CONFIGS_RUN, RUN, _configs, _jax_no_dropout,
 )
@@ -179,8 +179,10 @@ def _state(which, jt, tree, seed=0):
 
 
 def _compiler(lowered, out, key):
+    """Compile without LLVM's optimizations (half the compile time; the
+    steps run at two-line shapes)."""
     def job():
-        out[key] = lowered.compile()
+        out[key] = lowered.compile(F64_COMPILE)
     return job
 
 

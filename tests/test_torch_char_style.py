@@ -17,6 +17,7 @@ from handwriting_line_generation_tpu_torch.models import layers as PL
 from handwriting_line_generation_tpu_torch.models.char_style import (
     CharStyleEncoder, StyleTrunk,
 )
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 NC, DIM, CHAR_DIM, STYLE, K = 12, 8, 16, 10, 4

@@ -29,6 +29,7 @@ from handwriting_line_generation_tpu_torch.models.hw_with_style import \
     HWWithStyle
 from handwriting_line_generation_tpu_torch.models.layers import \
     FusedUpsample
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 RNG = np.random.default_rng(0)
 

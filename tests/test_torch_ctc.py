@@ -15,6 +15,7 @@ from handwriting_line_generation_tpu.ops.ctc import (
 from handwriting_line_generation_tpu.ops.ctc_pallas import ctc_loss_pallas
 from handwriting_line_generation_tpu_torch import kernels
 from handwriting_line_generation_tpu_torch.ops import ctc as P
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 # as tests/test_ctc_pallas.py: the two JAX versions agree to these
 VALUE_TOL = dict(rtol=1e-4, atol=1e-4)

@@ -26,6 +26,7 @@ from handwriting_line_generation_tpu_torch.data import rimes as PR
 from handwriting_line_generation_tpu_torch.data import synthetic as PS
 from handwriting_line_generation_tpu_torch.utils import png
 from handwriting_line_generation_tpu_torch.utils.png import read_png_gray
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 FIXTURE = pathlib.Path(__file__).resolve().parent / "fixtures" / "mini_iam"
 FORMS = sorted((FIXTURE / "forms").glob("*.png"))

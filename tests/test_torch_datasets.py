@@ -13,6 +13,7 @@ from handwriting_line_generation_tpu.data import datasets as J
 from handwriting_line_generation_tpu_torch.charset import IAM_CHARSET
 from handwriting_line_generation_tpu_torch.config import DataConfig
 from handwriting_line_generation_tpu_torch.data import datasets as P
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 WORDS = ["the", "quick brown", "fox", "jumps over", "a lazy dog", "seven",
          "handwriting", "line", "of text here"]

@@ -29,6 +29,7 @@ from handwriting_line_generation_tpu_torch.models.discriminator import \
 from handwriting_line_generation_tpu_torch.models.layers import SNConv
 from handwriting_line_generation_tpu_torch.training.losses import \
     disc_hinge_loss
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 B, W, S = 2, 64, 8
 SCORE_ATOL = 1e-4

@@ -38,6 +38,7 @@ import sys
 
 import pytest
 import torch
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "tests", "fixtures", "mini_iam")

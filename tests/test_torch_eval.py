@@ -46,6 +46,7 @@ from handwriting_line_generation_tpu_torch.ops import masks as PM
 from handwriting_line_generation_tpu_torch.utils.png import read_png_gray
 from test_torch_char_style import perturb
 from test_torch_datasets import WORDS, _line
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.compile   # JAX compiles of the whole model
 

@@ -34,6 +34,7 @@ from handwriting_line_generation_tpu_torch.models.hw_with_style import (
 )
 from test_torch_char_style import perturb
 from test_torch_datasets import BUCKETS, _line, _records
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.compile   # JAX compiles of the whole model
 

@@ -40,6 +40,7 @@ from handwriting_line_generation_tpu_torch.training.curriculum import \
 from handwriting_line_generation_tpu_torch.training.gan_trainer import (
     REPO_ROOT, GanTrainer, resolve_text_data,
 )
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 PAPER = {"0": [["count"], ["no-step", "gen"], ["auto", "auto-gen"],
                ["disc"], ["no-step", "gen"], ["auto", "auto-gen"],

@@ -43,6 +43,7 @@ Tolerances:
 
 import contextlib
 import dataclasses
+import functools
 import itertools
 import multiprocessing
 import threading
@@ -116,6 +117,7 @@ from handwriting_line_generation_tpu_torch.training.losses import \
 from handwriting_line_generation_tpu_torch.utils.checkpoint import \
     extract_subtree
 from test_trainers import _tiny_gan_cfg
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.compile   # the JAX steps' compiles dominate
 
@@ -211,6 +213,17 @@ def _slim(state, hwr):
     return st
 
 
+# the positions of each lesson step's static arguments among those
+# run_lesson passes it after the trainer (a_batch; spaced_len; a_batch,
+# opt_kind and bal_stage)
+STEP_STATIC = {"step_count": (5,), "step_gen_nostep": (3,),
+               "step_auto": (6, 7, 8), "step_disc": (5,)}
+
+
+def _call_dynamic(compiled, static, *args):
+    return compiled(*[a for i, a in enumerate(args) if i not in static])
+
+
 class _JaxRun:
     """The JAX cycle, and what each lesson saw and left."""
 
@@ -246,7 +259,7 @@ class _JaxRun:
         self.gen_spaced_len = tr.gen_spaced_len
         self.batches = _batches(5)
         self.lessons = [tr.curriculum.get_lesson(i) for i in range(7)]
-        self.noise_fns = {}
+        self.noise_fns, self.noise_exec = {}, {}
         self.records = []
         hwr = self.params["hwr"]
         self.compile_ahead()
@@ -268,7 +281,7 @@ class _JaxRun:
             self.records.append(dict(kind=kind, before=before, after=after,
                                      out=out, draws=draws, labels=labels))
             before = after
-        self.tr = self.noise_fns = None
+        self.tr = self.noise_fns = self.noise_exec = None
 
     def full(self, params):
         """Slimmed params with the recognizer's leaves back."""
@@ -311,15 +324,16 @@ class _JaxRun:
         self.child.join()
 
     def compile_ahead(self):
-        """Compile, each in its own thread, the four lesson steps (the auto
-        step first, the largest), the two noise recorders and the float64
-        JAX sides of the gen and disc lessons' float64 tests (kept as
-        ``gen_vjp64``, ``disc_grad64``) and of
+        """Compile, each in its own thread and without LLVM's optimizations
+        (``F64_COMPILE``: half the compile time), the four lesson steps
+        (the auto step first, the largest), the two noise recorders and the
+        float64 JAX sides of the gen and disc lessons' float64 tests (kept
+        as ``gen_vjp64``, ``disc_grad64``) and of
         ``test_extract_style_gradients_match_jax_float64`` (run here:
-        ``style_grads64``).  XLA compiles outside the GIL, so
-        this takes about the longest compile, not their sum (~50 s less on
-        CPU); the lessons' own calls then find their executables in JAX's
-        caches.  The tracing runs one after another on this thread."""
+        ``style_grads64``).  XLA compiles outside the GIL, so this takes
+        about the longest compile, not their sum (~50 s less on CPU); the
+        trainer's steps and the recorders then call these executables.  The
+        tracing runs one after another on this thread."""
         tr, it = self.tr, iter(self.batches)
         state = tr.state
         text = tr.text.rng.bit_generator.state
@@ -348,16 +362,27 @@ class _JaxRun:
         def start(job):
             threads.append(threading.Thread(target=job))
             threads[-1].start()
+        compiled = {}
+
+        def compile_into(out, key, lowered):
+            start(lambda: out.__setitem__(key, lowered.compile(F64_COMPILE)))
         # each compile starts as soon as its tracing ends, the largest first
         for name in sorted(calls, key=lambda n: n != "step_auto"):
-            start(getattr(JGanTrainer, name).lower(tr, *calls[name]).compile)
+            compile_into(compiled, name, getattr(JGanTrainer, name).lower(
+                tr, *calls[name]))
             if name == "step_auto":
                 self._compile_float64(start)
         key = jax.random.PRNGKey(0)
         for t in (W // 4, tr.gen_spaced_len):
-            start(self._noise_fn(t).lower(state.params, key).compile)
+            compile_into(self.noise_exec, t,
+                         self._noise_fn(t).lower(state.params, key))
         for t in threads:
             t.join()
+        # run_lesson calls the steps with their static arguments in place:
+        # the executables take the others
+        for name, static in STEP_STATIC.items():
+            setattr(tr, name, functools.partial(_call_dynamic,
+                                                compiled[name], static))
 
     def _compile_float64(self, start):
         """Trace the float64 JAX pieces and ``start`` their compiles."""
@@ -393,8 +418,10 @@ class _JaxRun:
         ``nrng`` at ``T`` spaced positions: each ``NoiseInjection`` draws
         ``normal(rng, x.shape[:3] + (1,))`` from the key its block passes
         it, which depends on the module path only."""
-        return [np.asarray(p) for p in
-                self._noise_fn(T)(self.tr.state.params, nrng)]
+        fn = getattr(self, "noise_exec", {}).get(T)
+        if fn is None:
+            fn = self._noise_fn(T)
+        return [np.asarray(p) for p in fn(self.tr.state.params, nrng)]
 
     def _noise_fn(self, T):
         if T not in self.noise_fns:

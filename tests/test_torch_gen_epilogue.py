@@ -11,6 +11,7 @@ from handwriting_line_generation_tpu.ops.gen_epilogue import \
 from handwriting_line_generation_tpu_torch.ops.gen_epilogue import (
     block_epilogue, block_epilogue_reference,
 )
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 def _inputs(C, seed=0, B=2, H=4, W=16, bias=False):

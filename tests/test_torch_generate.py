@@ -41,6 +41,7 @@ from handwriting_line_generation_tpu_torch.init import init_params
 from handwriting_line_generation_tpu_torch.models.hw_with_style import (
     HWWithStyle, pack_style, space_style, unpack_style,
 )
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.compile   # JAX session compiles dominate
 

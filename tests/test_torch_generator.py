@@ -22,6 +22,7 @@ from handwriting_line_generation_tpu_torch.models.count_cnn import CountCNN
 from handwriting_line_generation_tpu_torch.models.generator import \
     SpacedGenerator
 from handwriting_line_generation_tpu_torch.ops import spacing as PS
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.compile   # JAX generator compiles dominate
 

@@ -17,6 +17,7 @@ from handwriting_line_generation_tpu_torch.models import layers as P
 from handwriting_line_generation_tpu_torch.models.hwr import (
     CNNOnlyHWR, build_hwr,
 )
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 NUM_CLASS = 20
 # float32 on both sides; 11 convs of up to 4608 terms each, summed in

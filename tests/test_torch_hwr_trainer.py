@@ -39,6 +39,7 @@ from handwriting_line_generation_tpu_torch.training.train_state import \
     make_lr_schedule
 from handwriting_line_generation_tpu_torch.utils.error_rates import \
     batch_cer_wer
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 CONFIG = pathlib.Path(__file__).resolve().parents[1] / "configs/iam_hwr.json"
 B, W, L = 2, 64, 6

@@ -43,6 +43,7 @@ from handwriting_line_generation_tpu_torch.utils.checkpoint import \
 from handwriting_line_generation_tpu_torch.utils.png import (
     read_png_gray, write_png_gray,
 )
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 STEP = 7
 COUNT = 3

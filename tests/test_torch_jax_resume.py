@@ -27,6 +27,7 @@ import dataclasses
 import functools
 import json
 import multiprocessing
+import os
 import pathlib
 import shutil
 import types
@@ -174,14 +175,38 @@ def _gan_init_state(jt, pcfg, sample_batch, seed=0):
     return state
 
 
+def _unoptimized_xla():
+    """A child's compiles without LLVM's optimizations: half the compile
+    time, and the steps run at two-line shapes.  Set before the child's
+    first JAX computation starts its backend."""
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                               + " --xla_backend_optimization_level=0")
+
+
+def _step_child(conn, which, save_dir):
+    """The JAX run of the recognizer or the autoencoder in a process of its
+    own, started with the ``runs`` fixture beside the other two: ``K``
+    steps by its trainer's own ``train``, then step ``K + 1`` from JAX's
+    resume (:func:`_jax_step`).  Sends the log and that step."""
+    _unoptimized_xla()
+    jcfg, _ = _configs(which, save_dir)
+    jt = JAX_TRAINERS[which](jcfg)
+    log = jt.train(iterations=K)
+    kept, after, out, args, draws = _jax_step(
+        which, jt, pathlib.Path(save_dir, jcfg.name))
+    draws = draws and {k: v.numpy() for k, v in draws.items()}
+    conn.send(dict(log=log.entries, step=(kept, after, out, args, draws)))
+    conn.close()
+
+
 def _gan_child(conn, save_dir):
     """The JAX side of the GAN in a process of its own, started with the
-    ``runs`` fixture so its ~50 s of tracing and compiles run beside the
-    recognizer's and the autoencoder's: ``K`` lessons by
-    ``GanTrainer.train``, then JAX's own resume from the checkpoint and
-    lesson ``K + 1`` on the first batch of ``default_rng(5)``.  Sends the
-    log, the lesson's draws and loss, and the states before and after it
-    (``_host_tree``)."""
+    ``runs`` fixture beside the recognizer's and the autoencoder's:
+    ``K`` lessons by ``GanTrainer.train``, then JAX's own resume from the
+    checkpoint and lesson ``K + 1`` on the first batch of
+    ``default_rng(5)``.  Sends the log, the lesson's draws and loss, and
+    the states before and after it (``_host_tree``)."""
+    _unoptimized_xla()
     jcfg, pcfg = _configs("gan", save_dir)
     jt = JGanTrainer(jcfg)
     jt.init_state = functools.partial(_gan_init_state, jt, pcfg)
@@ -201,38 +226,45 @@ def _gan_child(conn, save_dir):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """Each JAX run of ``K`` steps, by its trainer's own ``train``: its run
-    directory and configs, and the recognizer's and autoencoder's trainer
-    (for their resumed step); the GAN's in a child process
-    (:func:`_gan_child`), whose answer is under ``jax``."""
+    """Each JAX run of ``K`` steps, by its trainer's own ``train``, each in
+    a spawned child (:func:`_step_child`, :func:`_gan_child`), the three
+    side by side: its run directory, configs and log, and for the
+    recognizer and the autoencoder step ``K + 1`` (``step``), for the GAN
+    the child's answer (``jax``)."""
     ctx = multiprocessing.get_context("spawn")
-    parent, child_end = ctx.Pipe()
-    gan_root = tmp_path_factory.mktemp("jax_gan")
-    child = ctx.Process(target=_gan_child, args=(child_end, str(gan_root)),
-                        daemon=True)
-    child.start()
-    child_end.close()
+    roots, conns, children = {}, {}, []
+    for which in ("gan", "hwr", "auto"):
+        roots[which] = tmp_path_factory.mktemp(f"jax_{which}")
+        conns[which], child_end = ctx.Pipe()
+        target = _gan_child if which == "gan" else _step_child
+        args = ((child_end, str(roots[which])) if which == "gan" else
+                (child_end, which, str(roots[which])))
+        children.append(ctx.Process(target=target, args=args, daemon=True))
+        children[-1].start()
+        child_end.close()
     out = {}
     try:
-        for which in ("hwr", "auto"):
-            root = tmp_path_factory.mktemp(f"jax_{which}")
-            jcfg, pcfg = _configs(which, root)
-            jt = JAX_TRAINERS[which](jcfg)
-            log = jt.train(iterations=K)
-            out[which] = types.SimpleNamespace(
-                dir=root / jcfg.name, jcfg=jcfg, pcfg=pcfg, jt=jt,
-                log=log.entries, step=_jax_step(which, jt, root / jcfg.name))
-        if not parent.poll(600):
-            raise TimeoutError("the JAX GAN run sent no answer")
-        got = parent.recv()
+        for which, conn in conns.items():
+            if not conn.poll(900):
+                raise TimeoutError(f"the JAX {which} run sent no answer")
+            got = conn.recv()
+            jcfg, pcfg = _configs(which, roots[which])
+            run = types.SimpleNamespace(dir=roots[which] / jcfg.name,
+                                        jcfg=jcfg, pcfg=pcfg, log=got["log"])
+            if which == "gan":
+                run.jax = got
+            else:
+                kept, after, res, args, draws = got["step"]
+                draws = draws and {k: torch.from_numpy(v)
+                                   for k, v in draws.items()}
+                run.step = (kept, after, res, args, draws)
+            out[which] = run
     finally:
-        if child.is_alive():
-            child.join(30)
-            child.kill()
-        child.join()
-    jcfg, pcfg = _configs("gan", gan_root)
-    out["gan"] = types.SimpleNamespace(dir=gan_root / jcfg.name, jcfg=jcfg,
-                                       pcfg=pcfg, log=got["log"], jax=got)
+        for child in children:
+            if child.is_alive():
+                child.join(30)
+                child.kill()
+            child.join()
     return out
 
 

@@ -10,6 +10,7 @@ import torch
 from handwriting_line_generation_tpu.models import layers as J
 from handwriting_line_generation_tpu_torch import convert
 from handwriting_line_generation_tpu_torch.models import layers as P
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

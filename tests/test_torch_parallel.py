@@ -32,9 +32,13 @@
   padded to the common shapes, their parameters and generators stay
   bit-equal through two HWR steps.
 
-The ranks run once, in a module fixture; each runs the one-process
-reference beside its own steps and sends back error figures and digests
-of its state (sha1 of the bits), not the tensors.
+The ranks run once, in a module fixture, and send back error figures and
+digests of their states and averaged gradients (sha1 of the bits), not the
+tensors.  Each flow's one-process reference runs on one rank
+(``REF_OWNER``: the recognizer's and the autoencoder's on rank 0, the
+GAN's on rank 1, side by side), after every collective, and its figures go
+to both ranks: their averaged gradients are bit-equal (the digests), so
+the figures hold for each.
 """
 
 import contextlib
@@ -51,6 +55,7 @@ import time
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from handwriting_line_generation_tpu_torch.config import (
     Config, DataConfig, DiscriminatorConfig, GeneratorConfig, HWRConfig,
@@ -72,7 +77,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 2
 GRAD_RTOL = 1e-5          # of each tensor's largest one-process entry
 LESSONS = ("count", "gen", "auto", "disc")
-RANK_TIMEOUT = 240        # s for the ranks' whole run
+# s for the ranks' whole run: beside five test processes compiling (-n 6)
+# it has taken more than 240 s; a hung rank still fails the tests
+RANK_TIMEOUT = 900
 
 
 def _adam_step_bound(b1, b2, t):
@@ -201,82 +208,133 @@ def _contiguous(model):
         t.data = t.data.contiguous()
 
 
-def _dp_flows(mesh, sl):
+# the rank that runs each flow's one-process reference (module docstring)
+REF_OWNER = {"hwr": 0, "ae": 0, "gan": 1}
+
+
+def _dp_flows(mesh, sl, rank):
     """HWR step, autoencoder step and the four GAN lessons on rows ``sl``
-    of the batch under ``mesh``, each beside one process on every row
-    (in this rank, no mesh), in float64: the averaged gradients' and the
-    loss's errors, the parameters' gap, and digests of the rank's state."""
+    of the batch under ``mesh``, and (on ``REF_OWNER``'s rank) each beside
+    one process on every row (in this rank, no mesh), in float64: the
+    averaged gradients' and the loss's errors, the parameters' gap, and
+    digests of the rank's state and averaged gradients.  The owners'
+    figures are shared over the default group."""
     with _float64():
-        return _dp_flows64(mesh, sl)
+        res, figures = _dp_flows64(mesh, sl, rank)
+    owned = [None] * WORLD
+    dist.all_gather_object(owned, figures)
+    for part in owned:
+        for name, fig in part.items():
+            res[name].update(fig)
+    return res
 
 
-def _dp_flows64(mesh, sl):
+STEP_FLOWS = {"hwr": (HWRTrainer, "iam_hwr.json"),
+              "ae": (AutoTrainer, "iam_auto_2tight.json")}
+
+
+def _step(name, mesh, rows):
+    """A seeded trainer of flow ``name`` after one step on ``rows``, and
+    its loss."""
+    cls, config = STEP_FLOWS[name]
+    tr = cls(load_config(os.path.join(REPO, "configs", config)),
+             device="cpu")
+    tr.use_mesh(mesh)
+    tr.init_state(seed=0)
+    _contiguous(tr.model)
+    out = tr.train_step(*rows)
+    return tr, float(out[0] if name == "hwr" else out["loss"])
+
+
+def _dp_flows64(mesh, sl, rank):
     b = _batch(np.float64)
-    whole = slice(None)
     rows_of = lambda s: (b["image"][s], b["label"][s], b["label_lengths"][s],
                          b["width"][s])
-    res = {}
-    for name, cls, config in (("hwr", HWRTrainer, "iam_hwr.json"),
-                              ("ae", AutoTrainer, "iam_auto_2tight.json")):
-        run = []
-        for m, s in ((mesh, sl), (None, whole)):
-            tr = cls(load_config(os.path.join(REPO, "configs", config)),
-                     device="cpu")
-            tr.use_mesh(m)
-            tr.init_state(seed=0)
-            _contiguous(tr.model)
-            out = tr.train_step(*rows_of(s))
-            run.append((tr, float(out[0] if name == "hwr" else out["loss"])))
-        (dp, loss), (ref, want) = run
+    res, figures, dps = {}, {}, {}
+    for name in STEP_FLOWS:
+        dp, loss = dps[name] = _step(name, mesh, rows_of(sl))
         res[name] = {
+            "lr": dp.cfg.optimizer.lr,
+            "digest": {"params": _digest(dp.model.state_dict()),
+                       "opt": _digest(dp.optimizer.state_dict()),
+                       "generator": _digest(dp.generator.get_state()),
+                       "grads": _digest([p.grad for p in
+                                         dp.model.parameters()])}}
+    gan = _gan_dp(mesh, sl, rows_of, b["fg_mask"], res)
+    # the references, after every collective of the flows
+    for name, (dp, loss) in dps.items():
+        if REF_OWNER[name] != rank:
+            continue
+        ref, want = _step(name, None, rows_of(slice(None)))
+        figures[name] = {
             "grad_err": _rel_err([p.grad for p in dp.model.parameters()],
                                  [p.grad for p in ref.model.parameters()]),
             "loss_err": abs(loss - want) / abs(want),
             "param_gap": max(float((p - q).abs().max()) for p, q in
                              zip(dp.model.parameters(),
-                                 ref.model.parameters())),
-            "lr": dp.cfg.optimizer.lr,
-            "digest": {"params": _digest(dp.model.state_dict()),
-                       "opt": _digest(dp.optimizer.state_dict()),
-                       "generator": _digest(dp.generator.get_state())}}
-    pair = []
-    for m in (mesh, None):
-        tr = GanTrainer(_gan_cfg(), device="cpu")
-        tr.use_mesh(m)
-        tr.init_state(seed=0)
-        _contiguous(tr.model)
-        _contiguous(tr.encoder)
-        pair.append(tr)
-    dp, ref = pair
+                                 ref.model.parameters()))}
+    if REF_OWNER["gan"] == rank:
+        figures.update(_gan_ref(gan, rows_of, b["fg_mask"]))
+    return res, figures
+
+
+def _gan_lesson(tr, kind, s, rows_of, fg, draws):
+    img, lab, lens, width = rows_of(s)
+    d = _split(draws, s)
+    if kind == "count":
+        return tr.step_count(img, lab, lens, width, 2)
+    if kind == "gen":
+        return tr.step_gen_nostep(lab, lens, tr.gen_spaced_len, d)
+    if kind == "auto":
+        return tr.step_auto(img, lab, lens, fg[s], width, 2)
+    return tr.step_disc(img, lab, lens, width, 2, draws=d)
+
+
+def _gan_trainer(mesh):
+    tr = GanTrainer(_gan_cfg(), device="cpu")
+    tr.use_mesh(mesh)
+    tr.init_state(seed=0)
+    _contiguous(tr.model)
+    _contiguous(tr.encoder)
+    return tr
+
+
+def _gan_dp(mesh, sl, rows_of, fg, res):
+    """The four GAN lessons on this rank's rows: digests into ``res``;
+    returns what the reference is held against (the draws, the averaged
+    gradient groups, parameters and bank after each lesson)."""
+    dp = _gan_trainer(mesh)
     res["text_batch"] = dp.text.get_batch(label_len=12)["label"]
-    fg = b["fg_mask"]
+    kept = []
     for kind in LESSONS:
         draws = _gan_draws(dp, seed=LESSONS.index(kind))
-        outs = []
-        for tr, s in ((dp, sl), (ref, whole)):
-            img, lab, lens, width = rows_of(s)
-            d = _split(draws, s)
-            if kind == "count":
-                out = tr.step_count(img, lab, lens, width, 2)
-            elif kind == "gen":
-                out = tr.step_gen_nostep(lab, lens, tr.gen_spaced_len, d)
-            elif kind == "auto":
-                out = tr.step_auto(img, lab, lens, fg[s], width, 2)
-            else:
-                out = tr.step_disc(img, lab, lens, width, 2, draws=d)
-            outs.append(_grads_of(kind, out))
+        grads = _grads_of(kind, _gan_lesson(dp, kind, sl, rows_of, fg,
+                                            draws))
+        res[kind] = {"digest": {**_gan_digests(dp),
+                                "grads": _digest(grads)}}
+        kept.append(dict(draws=draws, grads=grads,
+                         params=[p.detach().clone() for p in dp.state.params],
+                         bank=dp.state.style_bank.clone(),
+                         bank_count=dp.state.bank_count))
+    return dict(kept=kept, names=dp.state.names, labels=dp.state.labels)
+
+
+def _gan_ref(gan, rows_of, fg):
+    """One process on every row through the same lessons and draws: each
+    lesson's errors against the kept averaged ones."""
+    ref, out = _gan_trainer(None), {}
+    for kind, k in zip(LESSONS, gan["kept"]):
+        want = _grads_of(kind, _gan_lesson(ref, kind, slice(None), rows_of,
+                                           fg, k["draws"]))
         gaps = {}
-        for n, p, q, label in zip(dp.state.names, dp.state.params,
-                                  ref.state.params, dp.state.labels):
+        for p, q, label in zip(k["params"], ref.state.params, gan["labels"]):
             gaps[label] = max(gaps.get(label, 0.0),
                               float((p - q).abs().max()))
-        res[kind] = {
-            "grad_err": _rel_err(*outs), "param_gap": gaps,
-            "bank_err": _rel_err([dp.state.style_bank],
-                                 [ref.state.style_bank]),
-            "bank_count": (dp.state.bank_count, ref.state.bank_count),
-            "digest": _gan_digests(dp)}
-    return res
+        out[kind] = {
+            "grad_err": _rel_err(k["grads"], want), "param_gap": gaps,
+            "bank_err": _rel_err([k["bank"]], [ref.state.style_bank]),
+            "bank_count": (k["bank_count"], ref.state.bank_count)}
+    return out
 
 
 def _fsdp_flows(mesh):
@@ -355,7 +413,7 @@ def _rank_main(rank, world, port, out_dir):
     pm.init_distributed(device="cpu")
     dp = pm.make_mesh(world, 1)
     fsdp = pm.make_mesh(1, world)
-    res = {"dp": _dp_flows(dp, slice(2 * rank, 2 * rank + 2)),
+    res = {"dp": _dp_flows(dp, slice(2 * rank, 2 * rank + 2), rank),
            "fsdp": _fsdp_flows(fsdp), "ragged": _ragged_flow(dp, rank)}
     x = torch.arange(3.0) + 10 * rank
     got = pm.fetch(x, dp.data_group)
@@ -410,8 +468,9 @@ def test_dp_step_matches_one_process(run, name):
 
 @pytest.mark.parametrize("name", ["hwr", "ae"] + list(LESSONS))
 def test_dp_ranks_bit_equal(run, name):
-    """After each step, the two ranks hold the same bits: parameters, Adam
-    moments, generator, and for the GAN the style bank and the ``u``'s."""
+    """After each step, the two ranks hold the same bits: averaged
+    gradients, parameters, Adam moments, generator, and for the GAN the
+    style bank and the ``u``'s."""
     a, b = run
     assert a["dp"][name]["digest"] == b["dp"][name]["digest"]
 

@@ -19,7 +19,9 @@ from handwriting_line_generation_tpu.inference.eval import \
     Evaluator as JEvaluator
 from handwriting_line_generation_tpu_torch import pipeline
 from handwriting_line_generation_tpu_torch.charset import IAM_CHARSET
-from handwriting_line_generation_tpu_torch.config import DataConfig
+from handwriting_line_generation_tpu_torch.config import (
+    DataConfig, apply_overrides, load_config,
+)
 from handwriting_line_generation_tpu_torch.data import datasets as PD
 from handwriting_line_generation_tpu_torch.inference.eval import Evaluator
 from handwriting_line_generation_tpu_torch.scripts import (
@@ -27,6 +29,7 @@ from handwriting_line_generation_tpu_torch.scripts import (
 )
 from test_torch_eval import BUCKETS, Batches, model_pair, records
 from test_torch_train_cli import GAN_SHRINK
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 # two authors of four lines, two lines a batch (two groups of two for the
@@ -110,7 +113,8 @@ def rimes_run():
     root = pathlib.Path(tempfile.mkdtemp(prefix="test_pipeline_",
                                          dir=REPO / "saved"))
     argv = ["--family", "rimes3", "--save-dir", str(root), "--device",
-            "cpu", "--check-cache", *_pairs(SMALL)]
+            "cpu", "--check-cache", "--trajectory", str(TRAJECTORY),
+            *_pairs(SMALL)]
     rc = pipeline.main(argv)
     log = (root / "pipeline.log").read_text().splitlines()
     yield dict(rc=rc, root=root, argv=argv, log=log)
@@ -118,6 +122,9 @@ def rimes_run():
 
 
 NAMES = ("syn_rimes_hwr3", "syn_rimes_auto3", "syn_rimes_gan3")
+# the cache check's trajectory: the count, no-step gen and auto lessons
+# (both lessons that read an alignment)
+TRAJECTORY = 3
 
 
 def test_pipeline_runs_the_stages_in_order(rimes_run):
@@ -153,6 +160,34 @@ def test_cache_equals_live_alignment(rimes_run):
     for name, v in res["lessons"].items():
         assert v["max_loss_diff"] == 0 and v["max_group_diff"] == 0, name
         assert all(a == b for a, b in v["losses"].values())
+    traj = res["trajectory"]
+    assert traj["lessons"] == TRAJECTORY and traj["first_unequal"] is None
+    assert traj["cached"] == traj["live"] and traj["max_loss_diff"] == 0
+    assert {"countLoss", "autoLoss", "genRecogLoss"} <= {
+        k for lesson in traj["cached"] for k in lesson}
+
+
+def test_cache_trajectory_fails_on_a_shifted_row(rimes_run, tmp_path):
+    """The same check on a copy of the cache whose row of one record of the
+    first training batch is shifted by a frame: the rows mismatch and the
+    trajectory's count lesson, which reads that row, differs."""
+    root = rimes_run["root"]
+    ov, _ = pipeline.stage_overrides("syn_rimes_gan3", str(root), SMALL)
+    cfg = apply_overrides(load_config(pipeline.config_path(
+        "syn_rimes_gan3")), ov)
+    first = next(PD.forever(PD.make_batcher(cfg.data, "train"),
+                            seed=cfg.trainer.seed))["rid"][0]
+    with np.load(root / "syn_rimes_spaced3.npz") as cache:
+        rows = {k: cache[k] for k in cache.files}
+    rows[first] = np.roll(rows[first], 1)
+    shifted = tmp_path / "shifted.npz"
+    np.savez_compressed(shifted, **rows)
+    res = pipeline.cache_equals_live(pipeline.config_path("syn_rimes_gan3"),
+                                     str(shifted), ov, "cpu", batches=1,
+                                     trajectory=1)
+    assert res["mismatched_positions"] > 0
+    assert res["trajectory"]["first_unequal"] == 0
+    assert res["trajectory"]["max_loss_diff"] > 0
 
 
 def test_second_call_takes_no_step(rimes_run):

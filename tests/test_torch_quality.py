@@ -17,6 +17,7 @@ from handwriting_line_generation_tpu_torch.inference import quality as PQ
 from handwriting_line_generation_tpu_torch.inference import styles as PS
 from handwriting_line_generation_tpu_torch.utils.png import read_png_gray
 from test_torch_eval import author_batches, model_pair
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.compile   # JAX compiles of the whole model
 

@@ -37,6 +37,7 @@ from handwriting_line_generation_tpu_torch.training import metrics as PM
 from handwriting_line_generation_tpu_torch.training import train_state as PT
 from handwriting_line_generation_tpu_torch.utils import checkpoint as PCK
 from test_torch_eval import model_cfgs
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 RTOL_OF_MAX = 1e-6         # each tensor within 1e-6 of its largest entry

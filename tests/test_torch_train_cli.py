@@ -33,6 +33,7 @@ from handwriting_line_generation_tpu_torch.init import init_hwr_params
 from handwriting_line_generation_tpu_torch.ops import augment as p_augment
 from handwriting_line_generation_tpu_torch.training import hwr_trainer
 from handwriting_line_generation_tpu_torch.utils.checkpoint import load_meta
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 FIXTURE = REPO / "tests" / "fixtures" / "mini_iam"
