@@ -24,6 +24,7 @@ from handwriting_line_generation_tpu_torch.models.hw_with_style import (
 from handwriting_line_generation_tpu_torch.ops.spacing import (
     insert_spaces, onehot,
 )
+from handwriting_line_generation_tpu_torch.utils import tracing
 
 
 class GenerationSession:
@@ -50,16 +51,24 @@ class GenerationSession:
         """Spacer -> ``insert_spaces`` -> generator on device tensors.
         Returns ``(image [B, 64, 4T, 1] float32, total_len [B])``."""
         cfg = self.model.cfg
-        counts = self._counts(label, style)
+        with tracing.span("gen.spacer"):
+            counts = self._counts(label, style)
         det = self.deterministic_spacing
-        spacing_rng = torch.Generator(self.device).manual_seed(seed)
-        spaced, total = insert_spaces(
-            label, lens, counts, spacing_rng, max_len=spaced_len,
-            count_std=0.0 if det else cfg.count_std,
-            dup_std=0.0 if det else cfg.dup_std,
-            count_duplicates=cfg.spacer.count_duplicates)
-        noise_rng = torch.Generator(self.device).manual_seed(seed + 1)
-        img = self.model.generate_spaced(spaced, style, generator=noise_rng)
+        with tracing.span("gen.insert_spaces"):
+            spacing_rng = torch.Generator(self.device).manual_seed(seed)
+            spaced, total = insert_spaces(
+                label, lens, counts, spacing_rng, max_len=spaced_len,
+                count_std=0.0 if det else cfg.count_std,
+                dup_std=0.0 if det else cfg.dup_std,
+                count_duplicates=cfg.spacer.count_duplicates)
+        if tracing.enabled():
+            # positions the lines fill, against the positions rendered
+            tracing.count("gen.spaced_used", total.clamp(max=spaced_len))
+            tracing.count("gen.spaced_slots", spaced.numel())
+        with tracing.span("gen.generator"):
+            noise_rng = torch.Generator(self.device).manual_seed(seed + 1)
+            img = self.model.generate_spaced(spaced, style,
+                                             generator=noise_rng)
         return img, total
 
     def _counts(self, label, style):
@@ -95,15 +104,17 @@ class GenerationSession:
                       seed: int = 0, spaced_len: Optional[int] = None,
                       label_len: Optional[int] = None) -> torch.Tensor:
         """:meth:`render`, the images left on the device."""
-        label, lens = self.encode_texts(texts, label_len)
-        if spaced_len is None:
-            # spacer mean init ~2 blanks + ~1 dup per char; 6x headroom,
-            # rounded up to a multiple of 8
-            spaced_len = -(-int(label.shape[1] * 6) // 8) * 8
-        style = torch.as_tensor(np.asarray(styles, np.float32),
-                                device=self.device)
-        img, _ = self.forward(label, lens, style, spaced_len=spaced_len,
-                              seed=seed)
+        with tracing.span("gen.request"):
+            with tracing.span("gen.prepare"):
+                label, lens = self.encode_texts(texts, label_len)
+                style = torch.as_tensor(np.asarray(styles, np.float32),
+                                        device=self.device)
+            if spaced_len is None:
+                # spacer mean init ~2 blanks + ~1 dup per char; 6x
+                # headroom, rounded up to a multiple of 8
+                spaced_len = -(-int(label.shape[1] * 6) // 8) * 8
+            img, _ = self.forward(label, lens, style, spaced_len=spaced_len,
+                                  seed=seed)
         return img
 
     # -- modes ---------------------------------------------------------

@@ -28,6 +28,7 @@ from handwriting_line_generation_tpu_torch.utils.png import read_png_gray
 from handwriting_line_generation_tpu_torch.utils.raster_plot import (
     Canvas, data_limits,
 )
+from handwriting_line_generation_tpu_torch.utils import tracing
 
 # the JAX plot's figure: 8 x 8 in at 120 dpi; ``scatter(s=12)``: a dot of
 # sqrt(12) points across; thumbnails at ``OffsetImage(zoom=0.25)``
@@ -59,9 +60,11 @@ class StyleExtractor:
         recognizer frames past ``frames`` are masked to blank, as training
         masks them.  Tuple styles come packed ``[g | spacing | char.flat]``
         (identity for single styles)."""
-        style, pred = self.model.extract_style(image, a_batch_size,
-                                               frame_lengths=frames)
-        return pack_style(style), pred
+        with tracing.span("style.extract"):
+            style, pred = self.model.extract_style(image, a_batch_size,
+                                                   frame_lengths=frames)
+            with tracing.span("style.char_style"):
+                return pack_style(style), pred
 
     def extract_dataset(self, batcher, max_batches: Optional[int] = None,
                         through_emb: bool = False, on_batch=None,

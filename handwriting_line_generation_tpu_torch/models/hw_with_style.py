@@ -42,6 +42,7 @@ from handwriting_line_generation_tpu_torch.ops.ctc import mask_frames_to_blank
 from handwriting_line_generation_tpu_torch.ops.spacing import (
     insert_spaces, onehot,
 )
+from handwriting_line_generation_tpu_torch.utils import tracing
 
 
 def collapse_author_batch(image: torch.Tensor, seq: torch.Tensor,
@@ -103,16 +104,24 @@ class HWWithStyle(nn.Module):
 
         ``frame_lengths``: recognizer frames past each line's ink width
         become blank, so pad frames neither spike nor feed style crops."""
-        if pred is None:
-            pred = self.hwr(image)
-        if frame_lengths is not None:
-            pred = mask_frames_to_blank(pred, frame_lengths)
-        img_c, pred_c = collapse_author_batch(image, pred, a_batch_size)
-        style = self.style_extractor(img_c, pred_c)
-        rep = lambda s: s.repeat_interleave(a_batch_size, dim=0)
-        if isinstance(style, tuple):
-            return tuple(rep(s) for s in style), pred
-        return rep(style), pred
+        with tracing.span("style.recognizer"):
+            if pred is None:
+                pred = self.hwr(image)
+            if frame_lengths is not None:
+                pred = mask_frames_to_blank(pred, frame_lengths)
+                if tracing.enabled():
+                    # recognizer frames inside the lines, against all
+                    T = pred.shape[1]
+                    tracing.count("style.frames_used",
+                                  frame_lengths.clamp(max=T))
+                    tracing.count("style.frames_slots", pred.shape[0] * T)
+        with tracing.span("style.char_style"):
+            img_c, pred_c = collapse_author_batch(image, pred, a_batch_size)
+            style = self.style_extractor(img_c, pred_c)
+            rep = lambda s: s.repeat_interleave(a_batch_size, dim=0)
+            if isinstance(style, tuple):
+                return tuple(rep(s) for s in style), pred
+            return rep(style), pred
 
     def autoencode(self, image: torch.Tensor, labels: torch.Tensor,
                    label_lengths: torch.Tensor, a_batch_size: int = 1,
@@ -146,8 +155,10 @@ class HWWithStyle(nn.Module):
         else:
             gen_style = _flat_style(style)
         if spaced_label is None:       # discrete: no gradient flows
-            spaced_label = viterbi_align(pred.detach(), labels,
-                                         label_lengths)
+            # named for the GAN lessons, whose trace reads it
+            with tracing.span("gan.viterbi_align"):
+                spaced_label = viterbi_align(pred.detach(), labels,
+                                             label_lengths)
         recon = self.generator(
             onehot(spaced_label, self.cfg.num_class), gen_style, noise=noise,
             spaced_style=self._spaced_style(spaced_label, style),

@@ -131,7 +131,7 @@ from handwriting_line_generation_tpu_torch.training.train_state import (
     GanTrainState, balance_and_merge, bank_push, bank_sample,
     create_gan_state, global_norm, multipliers_at, swa_update,
 )
-from handwriting_line_generation_tpu_torch.utils import msgpack
+from handwriting_line_generation_tpu_torch.utils import msgpack, tracing
 from handwriting_line_generation_tpu_torch.utils.checkpoint import (
     checkpoint_exists, checkpoint_file, extract_subtree, load_checkpoint,
     load_meta, load_raw_checkpoint,
@@ -188,10 +188,12 @@ def _grads(outputs, params, grad_outputs, retain_graph: bool
            ) -> List[torch.Tensor]:
     """``torch.autograd.grad`` over every parameter, zeros where one does
     not reach the outputs."""
-    got = torch.autograd.grad(outputs, params, grad_outputs,
-                              retain_graph=retain_graph, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g
-            for g, p in zip(got, params)]
+    with tracing.span("gan.vjp"):
+        got = torch.autograd.grad(outputs, params, grad_outputs,
+                                  retain_graph=retain_graph,
+                                  allow_unused=True)
+        return [torch.zeros_like(p) if g is None else g
+                for g, p in zip(got, params)]
 
 
 def _host(x) -> np.ndarray:
@@ -404,8 +406,11 @@ class GanTrainer(CheckpointedTrainer):
         style = _flat_style(style)
         if c.trainer.style_detach:
             style = style.detach()
-        aligned = (self._tensor(spaced_label) if spaced_label is not None
-                   else viterbi_align(pred, label, lens))
+        if spaced_label is not None:
+            aligned = self._tensor(spaced_label)
+        else:
+            with tracing.span("gan.viterbi_align"):
+                aligned = viterbi_align(pred, label, lens)
         gt_counts, n_rec = counts_from_spaced(aligned, label.shape[1])
         counts = self.model.spacer(onehot(label, c.model.num_class), style)
         mask = (torch.arange(label.shape[1], device=self.device)[None, :]
@@ -416,7 +421,8 @@ class GanTrainer(CheckpointedTrainer):
         grads = _grads(loss, s.params, None, retain_graph=False)
         loss = loss.detach().clone()
         self._average(grads + [loss])
-        s.opt_main.step(grads)
+        with tracing.span("gan.optimizer"):
+            s.opt_main.step(grads)
         s.step += 1
         return {"countLoss": loss, "grads": grads}
 
@@ -431,13 +437,15 @@ class GanTrainer(CheckpointedTrainer):
         frames = torch.clamp(aux["total_len"], 1, spaced_len)
         im = img.detach().requires_grad_(True)
         recog_params = [] if c.model.hwr_frozen else s.params
-        logp = mask_frames_to_blank(self.model.recognize(im), frames)
-        recog_l = self._ctc(logp, label, lens, self.w["genRecog"])
-        ct_recog, *recog_p = torch.autograd.grad(
-            recog_l, [im] + recog_params, allow_unused=True)
-        adv_l = self.w["generator"] * gen_adv_loss(
-            self.model.discriminate(im, **self._cond_style(style_gen)))
-        ct_adv, = torch.autograd.grad(adv_l, im)
+        with tracing.span("gan.ctc"):
+            logp = mask_frames_to_blank(self.model.recognize(im), frames)
+            recog_l = self._ctc(logp, label, lens, self.w["genRecog"])
+            ct_recog, *recog_p = torch.autograd.grad(
+                recog_l, [im] + recog_params, allow_unused=True)
+        with tracing.span("gan.discriminator"):
+            adv_l = self.w["generator"] * gen_adv_loss(
+                self.model.discriminate(im, **self._cond_style(style_gen)))
+            ct_adv, = torch.autograd.grad(adv_l, im)
         recog_g = _grads(img, s.params, ct_recog, retain_graph=True)
         adv_g = _grads(img, s.params, ct_adv, retain_graph=False)
         for i, g in enumerate(recog_p):
@@ -487,14 +495,17 @@ class GanTrainer(CheckpointedTrainer):
             main_l = main_l + self.w["perceptual"] * perc
             logs["perceptualLoss"] = perc.detach().clone()
         ct_main, = torch.autograd.grad(main_l, r)
-        adv_l = self.w["generator"] * gen_adv_loss(self.model.discriminate(
-            r, **self._cond_style(_flat_style(aux["style"]))))
-        ct_adv, = torch.autograd.grad(adv_l, r)
+        with tracing.span("gan.discriminator"):
+            adv_l = self.w["generator"] * gen_adv_loss(
+                self.model.discriminate(
+                    r, **self._cond_style(_flat_style(aux["style"]))))
+            ct_adv, = torch.autograd.grad(adv_l, r)
         recog_params = [] if c.model.hwr_frozen else s.params
-        logp = mask_frames_to_blank(self.model.recognize(r), frames)
-        recog_l = self._ctc(logp, label, lens, self.w["reconRecog"])
-        ct_recog, *recog_p = torch.autograd.grad(
-            recog_l, [r] + recog_params, allow_unused=True)
+        with tracing.span("gan.ctc"):
+            logp = mask_frames_to_blank(self.model.recognize(r), frames)
+            recog_l = self._ctc(logp, label, lens, self.w["reconRecog"])
+            ct_recog, *recog_p = torch.autograd.grad(
+                recog_l, [r] + recog_params, allow_unused=True)
         if vae:
             # the KL is a second output of the same forward: its gradient
             # reaches the style extractor directly, not through the recon
@@ -518,11 +529,12 @@ class GanTrainer(CheckpointedTrainer):
             mults = (multipliers_at(c.trainer.balance_var_x, bal_stage)
                      + [1.0] * 4)[:4]
             groups = [s.saved_recog, s.saved_adv, adv_g, recog_g]
-            merged = balance_and_merge(main_g, groups, mults)
-            for name, g in zip(GROUPS, groups):
-                logs[f"gnorm_{name}"] = global_norm(g)
-            logs["gnorm_main"] = global_norm(main_g)
-            logs["gnorm_merged"] = global_norm(merged)
+            with tracing.span("gan.balance_and_merge"):
+                merged = balance_and_merge(main_g, groups, mults)
+                for name, g in zip(GROUPS, groups):
+                    logs[f"gnorm_{name}"] = global_norm(g)
+                logs["gnorm_main"] = global_norm(main_g)
+                logs["gnorm_merged"] = global_norm(merged)
         else:
             both_g = _grads(recon, s.params, ct_adv + ct_recog,
                             retain_graph=False)
@@ -538,7 +550,8 @@ class GanTrainer(CheckpointedTrainer):
                "main_g": main_g, "merged": merged}
         if self.balance:
             out.update(adv_g=adv_g, recog_g=recog_g)
-        opt.step(merged)
+        with tracing.span("gan.optimizer"):
+            opt.step(merged)
         styles = pack_style(aux["style"])[::a_batch].detach()
         if self.mesh is not None:
             styles = self.mesh.gather_rows(styles)
@@ -568,13 +581,16 @@ class GanTrainer(CheckpointedTrainer):
             if c.model.discriminator.cond:
                 style_real, _ = self.model.extract_style(image, a_batch)
                 kwr = {"style": _flat_style(style_real)}
-        real_s = self.model.discriminate(image, **kwr)
-        fake_s = self.model.discriminate(fake, **self._cond_style(style_gen))
-        loss = self.w["discriminator"] * disc_hinge_loss(real_s, fake_s)
+        with tracing.span("gan.discriminator"):
+            real_s = self.model.discriminate(image, **kwr)
+            fake_s = self.model.discriminate(
+                fake, **self._cond_style(style_gen))
+            loss = self.w["discriminator"] * disc_hinge_loss(real_s, fake_s)
         grads = _grads(loss, s.params, None, retain_graph=False)
         loss = loss.detach().clone()
         self._average(grads + [loss])
-        s.opt_disc.step(grads)
+        with tracing.span("gan.optimizer"):
+            s.opt_disc.step(grads)
         s.step += 1
         return {"discriminatorLoss": loss, "grads": grads}
 
@@ -592,6 +608,12 @@ class GanTrainer(CheckpointedTrainer):
             raise ValueError(
                 "curriculum produced no lesson for this iteration: the "
                 "first stage starts later than iteration 0")
+        # one root span a lesson, named with its kinds
+        with tracing.span(f"gan.lesson[{'+'.join(lesson)}]"):
+            return self._lesson(lesson, data_iter, iteration, draws)
+
+    def _lesson(self, lesson: List[str], data_iter: Iterator[Dict],
+                iteration: int, draws: Draws) -> Dict:
         c = self.cfg
         keep = lambda out: {k: v for k, v in out.items()
                             if not isinstance(v, list)}
