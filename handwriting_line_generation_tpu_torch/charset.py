@@ -9,8 +9,9 @@ indexed from 1, so ``num_class == len(chars) + 1``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -53,6 +54,41 @@ class Charset:
         """String -> int labels, silently dropping unknown characters."""
         table = self.char_to_idx
         return np.array([table[c] for c in text if c in table], dtype=np.int32)
+
+    @functools.cached_property
+    def _code_table(self) -> np.ndarray:
+        """Label of each code point up to the highest character's, then
+        a 0 that every higher code point reads (``take``'s clip); 0 for a
+        code point outside the charset."""
+        table = np.zeros(max(map(ord, self.chars), default=0) + 2, np.int64)
+        for c, i in self.char_to_idx.items():
+            table[ord(c)] = i
+        return table
+
+    def encode_batch(self, texts: Sequence[str],
+                     label_len: Optional[int] = None
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """Texts -> ``(labels [B, L] int64, lens [B] int64)`` in one pass
+        over the joined texts' code points: each row :meth:`encode`'s
+        labels cut at ``L = label_len or max(longest, 1)``, zero after its
+        ``lens`` (raises, as a max of nothing, for no texts without
+        ``label_len``)."""
+        table = self._code_table
+        B = len(texts)
+        text_lens = np.fromiter(map(len, texts), np.int64, count=B)
+        cp = np.frombuffer("".join(texts).encode("utf-32-le",
+                                                 "surrogatepass"), np.uint32)
+        idx = table.take(cp, mode="clip")
+        unknown = np.flatnonzero(idx == 0)
+        kept = text_lens - np.bincount(
+            np.searchsorted(np.cumsum(text_lens), unknown, "right"),
+            minlength=B)
+        L = label_len or max(int(kept.max()), 1)
+        # the known labels fill each row from the left, row-major, in a
+        # width that holds every row whole; then the cut at L
+        full = np.zeros((B, max(int(kept.max(initial=0)), L)), np.int64)
+        full[np.arange(full.shape[1]) < kept[:, None]] = idx[idx > 0]
+        return np.ascontiguousarray(full[:, :L]), np.minimum(kept, L)
 
     def decode(self, label: Sequence[int], as_raw: bool = False,
                blank_char: str = "~") -> str:

@@ -82,14 +82,15 @@ class GenerationSession:
     def encode_texts(self, texts: Sequence[str],
                      label_len: Optional[int] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-        labels = [self.charset.encode(t) for t in texts]
-        L = label_len or max(max(len(l) for l in labels), 1)
-        labels = [l[:L] for l in labels]
-        out = np.zeros((len(texts), L), np.int64)
-        lens = np.zeros(len(texts), np.int64)
-        for i, l in enumerate(labels):
-            out[i, :len(l)] = l
-            lens[i] = len(l)
+        """Texts -> ``(labels [B, L], lens [B])`` int64 on the device
+        (:meth:`Charset.encode_batch`).  Counts the characters read
+        (``gen.prepare_chars``) and those that reach no label, unknown to
+        the charset or past ``label_len`` (``gen.prepare_dropped``)."""
+        out, lens = self.charset.encode_batch(texts, label_len)
+        if tracing.enabled():
+            n = sum(map(len, texts))
+            tracing.count("gen.prepare_chars", n)
+            tracing.count("gen.prepare_dropped", n - int(lens.sum()))
         return (torch.from_numpy(out).to(self.device),
                 torch.from_numpy(lens).to(self.device))
 

@@ -2,7 +2,8 @@
 paths record nothing and run the same tensor ops; under a profiler, the
 generation session's and the style extractor's spans nest, share a request
 id and hold their ``record_function`` ranges; the fill counters equal
-their hand counts; a GAN lesson cycle records the ``gan.*`` spans."""
+their hand counts, and the prepare counters the per-text encode; a GAN
+lesson cycle records the ``gan.*`` spans."""
 
 from contextlib import nullcontext
 
@@ -181,6 +182,35 @@ def test_fill_counters_equal_the_hand_counts(model):
     assert T == W // 4 < 40
     assert got["style.frames_used"] == 16 + 9 + T + 1
     assert got["style.frames_slots"] == 4 * T
+
+
+PREPARE_TEXTS = ["a quíck líne", "hi\x00", "the slow brown fox",
+                 "ok \U0001F600 then"]
+
+
+@pytest.mark.parametrize("on,label_len", [
+    (True, None), (True, 5), (False, None)])
+def test_prepare_counters(on, label_len, model):
+    """One ``render_tensor`` under ``enable()``: ``gen.prepare_chars`` is
+    every character of the texts, ``gen.prepare_dropped`` those in no
+    label (unknown, or past ``label_len``), by the per-text ``encode``.
+    Tracing off: no counter."""
+    if on:
+        tracing.enable()
+    sess = GenerationSession(model, IAM_CHARSET, device="cpu")
+    sess.render_tensor(PREPARE_TEXTS, _styles(), seed=3, spaced_len=SPACED,
+                       label_len=label_len)
+    got = tracing.counters()
+    if not on:
+        assert got == {}
+        return
+    chars = sum(len(t) for t in PREPARE_TEXTS)
+    known = [len(IAM_CHARSET.encode(t)) for t in PREPARE_TEXTS]
+    L = label_len or max(known)
+    assert got["gen.prepare_chars"] == chars == 42
+    assert got["gen.prepare_dropped"] == chars - sum(min(k, L)
+                                                     for k in known)
+    assert got["gen.prepare_dropped"] == (4 if label_len is None else 25)
 
 
 def test_counters_sum_across_calls_and_reset():
