@@ -26,9 +26,10 @@ from handwriting_line_generation_tpu_torch.charset import (
     Charset, ctc_greedy_decode_batch,
 )
 from handwriting_line_generation_tpu_torch.device import resolve_device
-from handwriting_line_generation_tpu_torch.models.hw_with_style import (
-    HWWithStyle, pack_style,
-)
+from handwriting_line_generation_tpu_torch.inference.styles import \
+    StyleExtractor
+from handwriting_line_generation_tpu_torch.models.hw_with_style import \
+    HWWithStyle
 from handwriting_line_generation_tpu_torch.ops.ctc import mask_frames_to_blank
 from handwriting_line_generation_tpu_torch.utils.error_rates import (
     batch_cer_wer, cer as cer_fn,
@@ -67,6 +68,7 @@ class Evaluator:
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.charset = charset
+        self.extractor = StyleExtractor(self.model, device=self.device)
 
     def _seeded(self, seed: int) -> torch.Generator:
         return torch.Generator(self.device).manual_seed(seed)
@@ -146,25 +148,25 @@ class Evaluator:
             if reconstruct:
                 a = batch.get("a_batch_size", 1)
                 # the extraction reads the recognizer pass above
-                recon, aux = self.model.autoencode(
-                    image, label, lens, a, frame_lengths=frames, pred=raw,
-                    generator=self._seeded(0))
+                recon, spaced, style = self.extractor.reconstruct(
+                    image, frames, label, lens, a, self._seeded(0),
+                    pred=raw)
                 packed = None
                 if save_nns or save_styles:
-                    packed = pack_style(aux["style"]).float().cpu().numpy()
+                    packed = style.float().cpu().numpy()
                 if save_nns:
-                    nn_styles.append(packed)
+                    nn_styles.append(np.repeat(packed, a, axis=0))
                     nn_authors.extend(batch.get(
                         "author", [""] * image.shape[0]))
                 auto = (recon - image).abs().mean().item()
                 totals["autoLoss"] = totals.get("autoLoss", 0) + auto
                 if save_styles:
-                    styles_acc.append(packed[::a])
+                    styles_acc.append(packed)
                     authors.extend(batch["author"][::a])
                 if save_spaced:
                     # keyed by record id: the dataset's spaced_loc cache
                     # reads these back per line
-                    sl = aux["spaced_label"].cpu().numpy()
+                    sl = spaced.cpu().numpy()
                     for b, rid in enumerate(batch.get(
                             "rid", [f"{i}-{b}" for b in range(len(sl))])):
                         spaced_acc[rid or f"{i}-{b}"] = sl[b]
@@ -176,7 +178,8 @@ class Evaluator:
                             side_by_side(np.asarray(batch["image"][b]),
                                          rec[b]))
                 if save_gen and out_dir:
-                    gen = self.generate(label, lens, aux["style"],
+                    gen = self.generate(label, lens,
+                                        style.repeat_interleave(a, dim=0),
                                         image.shape[2] // 4)
                     gen = gen[:4].float().cpu().numpy()
                     for b in range(min(4, image.shape[0])):

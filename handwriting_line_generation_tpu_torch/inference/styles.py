@@ -3,7 +3,9 @@ style-space statistics.
 
 Counterpart of ``handwriting_line_generation_tpu/inference/styles.py``:
 iterate a batcher, run ``HWWithStyle.extract_style`` per batch of author
-groups, and keep one ``{styles, authors, ids}`` row per group.  Banks are
+groups, and keep one ``{styles, authors, ids}`` row per group; and the
+served reconstruction (:meth:`StyleExtractor.reconstruct`), which the
+evaluator and the ``spaced_loc`` cache run.  Banks are
 ``.npz`` files in the JAX package's layout, so they move between the two
 packages.  ``umap_embed`` keeps JAX's try-UMAP-else-PCA, and
 ``plot_style_map`` draws its scatter on ``utils/raster_plot.py``'s canvas
@@ -21,7 +23,7 @@ import torch
 
 from handwriting_line_generation_tpu_torch.device import resolve_device
 from handwriting_line_generation_tpu_torch.models.hw_with_style import (
-    HWWithStyle, pack_style,
+    RECON_ROOT, HWWithStyle, pack_style,
 )
 from handwriting_line_generation_tpu_torch.utils.colormap import TAB20
 from handwriting_line_generation_tpu_torch.utils.png import read_png_gray
@@ -65,6 +67,28 @@ class StyleExtractor:
                                                    frame_lengths=frames)
             with tracing.span("style.char_style"):
                 return pack_style(style), pred
+
+    @torch.inference_mode()
+    def reconstruct(self, image: torch.Tensor, frames: torch.Tensor,
+                    labels: torch.Tensor, label_lengths: torch.Tensor,
+                    a_batch_size: int, generator: torch.Generator,
+                    pred: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Each line regenerated in its writer's extracted style, in one
+        :meth:`HWWithStyle.autoencode`: the recognizer once, its
+        prediction masked past ``frames`` feeding both the style and the
+        CTC forced alignment to ``labels``, then the generator, whose
+        noise planes ``generator`` draws.  ``pred``: the recognizer's
+        unmasked log-probs of ``image``, when the caller has them.
+
+        Returns device tensors ``(recon [B, 64, 4T, 1], spaced_label [B,
+        T], packed style [B/a, D])``, one style row an author."""
+        with tracing.span(RECON_ROOT):
+            recon, aux = self.model.autoencode(
+                image, labels, label_lengths, a_batch_size,
+                frame_lengths=frames, pred=pred, generator=generator)
+            return (recon, aux["spaced_label"],
+                    pack_style(aux["style"])[::a_batch_size])
 
     def extract_dataset(self, batcher, max_batches: Optional[int] = None,
                         through_emb: bool = False, on_batch=None,

@@ -22,6 +22,7 @@ the ones it needs, so generation never runs the recognizer.
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import List, Optional, Tuple
 
 import torch
@@ -43,6 +44,9 @@ from handwriting_line_generation_tpu_torch.ops.spacing import (
     insert_spaces, onehot,
 )
 from handwriting_line_generation_tpu_torch.utils import tracing
+
+# the root span of a served reconstruction (``StyleExtractor.reconstruct``)
+RECON_ROOT = "recon.request"
 
 
 def collapse_author_batch(image: torch.Tensor, seq: torch.Tensor,
@@ -154,15 +158,29 @@ class HWWithStyle(nn.Module):
             gen_style = mu + torch.exp(log_sigma) * eps
         else:
             gen_style = _flat_style(style)
+        # a served reconstruction's spans and counters carry its root's
+        # prefix; elsewhere the alignment keeps the name the GAN lessons'
+        # trace reads
+        served = tracing.root() == RECON_ROOT
         if spaced_label is None:       # discrete: no gradient flows
-            # named for the GAN lessons, whose trace reads it
-            with tracing.span("gan.viterbi_align"):
+            with tracing.span("recon.align" if served
+                              else "gan.viterbi_align"):
                 spaced_label = viterbi_align(pred.detach(), labels,
                                              label_lengths)
-        recon = self.generator(
-            onehot(spaced_label, self.cfg.num_class), gen_style, noise=noise,
-            spaced_style=self._spaced_style(spaced_label, style),
-            generator=generator)
+            if served:
+                # lattice states inside the labels, against all the
+                # recursion carries, and its steps
+                tracing.count("recon.lattice_used",
+                              2 * label_lengths.long() + 1)
+                tracing.count("recon.lattice_slots",
+                              labels.shape[0] * (2 * labels.shape[1] + 1))
+                tracing.count("recon.align_steps", pred.shape[1] - 1)
+        with tracing.span("recon.generator") if served else nullcontext():
+            recon = self.generator(
+                onehot(spaced_label, self.cfg.num_class), gen_style,
+                noise=noise,
+                spaced_style=self._spaced_style(spaced_label, style),
+                generator=generator)
         return recon, {"style": style, "pred": pred,
                        "spaced_label": spaced_label}
 

@@ -103,6 +103,13 @@ class _Open:
         return False
 
 
+def root() -> Optional[str]:
+    """The name of the outermost span open on this thread, or ``None``
+    (always ``None`` while tracing is off)."""
+    stack = _local.__dict__.get("stack")
+    return stack[0].name if stack else None
+
+
 def span(name: str):
     """A context that records the block as span ``name`` when tracing is
     on, and does nothing when it is off."""
