@@ -40,11 +40,15 @@ Phases, in order; any failure exits non-zero:
    char style encoder, generator 256, spacer; f32, fused epilogue, seeded
    weights and conv biases) on B = 64 u8 glyph lines of 64 x 1024, 32
    author pairs: ``extract_style`` (finite [64, 128] style, equal rows per
-   pair), ``viterbi_align`` on the card bit-equal to the CPU,
-   ``autoencode`` with 9 epilogue launches against the plain epilogue path
-   (max abs <= 1e-3), the card's styles against the CPU's (TF32 off), and
-   ``StyleExtractor.extract_dataset`` over an ``AuthorBatcher`` behind a
-   ``Prefetcher`` (one row per pair, in order, with its ids); then
+   pair), ``viterbi_align`` on the card bit-equal to the CPU, one launch
+   of the Viterbi kernel in ``autoencode`` and in
+   ``StyleExtractor.reconstruct``, its kernel and plain ms (CUDA events,
+   B = 64, T = 256, L = 72) beside its byte bound (a row of the kernels
+   line), ``autoencode`` with 9 epilogue launches against the plain
+   epilogue path (max abs <= 1e-3), the card's styles against the CPU's
+   (TF32 off), and ``StyleExtractor.extract_dataset`` over an
+   ``AuthorBatcher`` behind a ``Prefetcher`` (one row per pair, in order,
+   with its ids); then
    extracted and autoencoded lines/s (CUDA-event medians of 10 after 3
    warm-ups, TF32 on and off), ``trace_style``'s per-layer split and one
    profiled window's idle share;
@@ -668,7 +672,8 @@ class _Prefetched:
 
 def style_main_path(torch, np, ge, ts, card):
     """Phase 9: style extraction and autoencode on the paper model, its
-    checks, rates and per-layer split."""
+    checks, rates and per-layer split.  Returns the Viterbi kernel's row
+    of the kernels line."""
     from handwriting_line_generation_tpu_torch.charset import IAM_CHARSET
     from handwriting_line_generation_tpu_torch.config import DataConfig
     from handwriting_line_generation_tpu_torch.data.datasets import (
@@ -676,8 +681,9 @@ def style_main_path(torch, np, ge, ts, card):
     )
     from handwriting_line_generation_tpu_torch.inference.styles import \
         StyleExtractor
-    from handwriting_line_generation_tpu_torch.ops.align import \
-        viterbi_align
+    from handwriting_line_generation_tpu_torch.ops.align import (
+        viterbi_align, viterbi_align_cuda, viterbi_backtrace, viterbi_moves,
+    )
     model = ts.paper_model(DEVICE)
     c = model.cfg
     print(f"style config {ts.CONFIG.name}: hwr {c.hwr.kind}/{c.hwr.norm}, "
@@ -694,10 +700,17 @@ def style_main_path(torch, np, ge, ts, card):
         style, pred = model.extract_style(image, A, frame_lengths=frames)
         spaced = viterbi_align(pred, label, lens)
         ge.block_epilogue.launches = 0
+        viterbi_align_cuda.launches = 0
         recon, aux = model.autoencode(image, label, lens, A,
                                       frame_lengths=frames,
                                       generator=noise())
         launches = ge.block_epilogue.launches
+        viterbi_launches = viterbi_align_cuda.launches
+        # the served entry the reconstruction cell runs
+        viterbi_align_cuda.launches = 0
+        _, served_spaced, _ = StyleExtractor(model, device=DEVICE) \
+            .reconstruct(image, frames, label, lens, A, noise())
+        served_launches = viterbi_align_cuda.launches
         model.generator.fused_epilogue = False
         plain, _ = model.autoencode(image, label, lens, A,
                                     frame_lengths=frames, generator=noise())
@@ -713,10 +726,40 @@ def style_main_path(torch, np, ge, ts, card):
     spaced_cpu = viterbi_align(pred.cpu(), label.cpu(), lens.cpu())
     same = torch.equal(spaced.cpu(), spaced_cpu)
     print(f"viterbi_align [{B}, {pred.shape[1]}] card vs CPU: bit-equal "
-          f"{same}", flush=True)
-    if not same or not torch.equal(aux["spaced_label"], spaced):
+          f"{same}; Viterbi kernel launches in autoencode "
+          f"{viterbi_launches}, in StyleExtractor.reconstruct "
+          f"{served_launches}", flush=True)
+    if not same or not torch.equal(aux["spaced_label"], spaced) \
+            or not torch.equal(served_spaced, spaced):
         raise AssertionError("viterbi_align on the card differs from the "
                              "CPU")
+    if viterbi_launches != 1 or served_launches != 1:
+        raise AssertionError(f"expected 1 Viterbi kernel launch per "
+                             f"autoencode and per reconstruct, got "
+                             f"{viterbi_launches} and {served_launches}")
+    with torch.inference_mode():
+        kernel_ms = ts.event_median_ms(lambda: viterbi_align(pred, label,
+                                                             lens))
+        plain_ms = ts.event_median_ms(lambda: viterbi_backtrace(
+            *viterbi_moves(pred, label, lens)))
+    # bytes: each line's 2 len + 1 emissions a frame, the labels, the
+    # lengths and the [B, T] output, once each, at 3.35 TB/s
+    T = pred.shape[1]
+    nbytes = (pred.element_size() * T * int((2 * lens.long() + 1).sum())
+              + label.element_size() * (label.numel() + B * T)
+              + lens.element_size() * B)
+    bound_ms = nbytes / 3.35e9
+    print(f"viterbi_align kernel {kernel_ms:.4f} ms, bound "
+          f"{bound_ms:.5f} ms (bytes), plain {plain_ms:.3f} ms "
+          f"(B={B}, T={T}, L={label.shape[1]}, f32) {card}", flush=True)
+    viterbi_row = {
+        "name": f"viterbi (autoencode, B={B} T={T} L={label.shape[1]} f32)",
+        "route": "cuda",
+        "source": "handwriting_line_generation_tpu_torch/csrc/viterbi.cu",
+        "replaces": None, "launches": viterbi_launches,
+        "max_abs_err": int((spaced.cpu() != spaced_cpu).sum()),
+        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": "bytes", "library_ms": None}
     err = (recon - plain).abs().max().item()
     print(f"autoencode: image {tuple(recon.shape)}, gen_epilogue launches "
           f"{launches}; kernel vs plain epilogue path max abs diff "
@@ -788,6 +831,7 @@ def style_main_path(torch, np, ge, ts, card):
     ts.report(model, data, card)
     del model
     torch.cuda.empty_cache()
+    return viterbi_row
 
 
 def auto_batch(ta, seed):
@@ -4156,7 +4200,7 @@ def main():
     main_t = ctc_times[CTC_MAIN]
 
     # 9. main path: style extraction and autoencode on the paper model
-    style_main_path(torch, np, ge, ts, card)
+    viterbi_row = style_main_path(torch, np, ge, ts, card)
 
     # 10. main path: autoencoder pretraining through the CTC kernel at
     # T = W/8 (leaves TF32 off)
@@ -4272,7 +4316,7 @@ def main():
         "plain_ms": t_["plain_ms"], "bound_ms": t_["bound_ms"],
         "bound_by": t_["bound_by"], "library_ms": t_["library_ms"]}
         for path, (b, t, lab), n, err, t_ in ctc_paths + var_ctc]
-        + var_epi + [plot_row, bf16_render] + mfu_rows}))
+        + var_epi + [plot_row, bf16_render] + mfu_rows + [viterbi_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -21,7 +21,7 @@ from typing import Dict, List, Tuple
 PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("gen_epilogue", "ctc")    # every kernel source of the package
+SOURCES = ("gen_epilogue", "ctc", "viterbi")   # every kernel source
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

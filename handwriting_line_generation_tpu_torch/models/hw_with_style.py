@@ -169,7 +169,8 @@ class HWWithStyle(nn.Module):
                                              label_lengths)
             if served:
                 # lattice states inside the labels, against all the
-                # recursion carries, and its steps
+                # recursion carries, and its steps (viterbi_align counts
+                # recon.align_launches, the kernel's launches)
                 tracing.count("recon.lattice_used",
                               2 * label_lengths.long() + 1)
                 tracing.count("recon.lattice_slots",

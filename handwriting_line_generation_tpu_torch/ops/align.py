@@ -1,16 +1,22 @@
 """Alignment of CTC predictions to labels.
 
-Counterpart of ``handwriting_line_generation_tpu/ops/align.py``.  Both
-alignments are recursions over the ``T`` frames, run here as a Python loop
-of batched ``[B, S]`` tensor steps (no host sync inside either loop):
+Counterpart of ``handwriting_line_generation_tpu/ops/align.py``, where both
+alignments are ``lax.scan``s over the ``T`` frames.
 
 * :func:`viterbi_align` — CTC forced alignment (the best path through the
   CTC lattice), the default of ``HWWithStyle.autoencode``: output length
-  exactly ``T``.  The max-plus form of the CTC alpha recursion, with int8
-  backpointers and a backtrace vectorised over the batch.
+  exactly ``T``.  A CUDA tensor goes to the hand-written kernel
+  ``csrc/viterbi.cu`` (:func:`viterbi_align_cuda`: the recursion and the
+  backtrace in one launch); a CPU tensor to the plain version,
+  :func:`viterbi_moves` + :func:`viterbi_backtrace`: the max-plus form of
+  the CTC alpha recursion as a Python loop of batched ``[B, S]`` tensor
+  steps with int8 backpointers, then a backtrace vectorised over the batch
+  (no host sync inside either loop).  The two give the same path bit for
+  bit.
 * :func:`dtw_align` — the reference's banded DTW (cost ``1 - logp``, moves
   up/diag/left with that tie-break order, band ``max(T//2, |T-S|)``), whose
-  in-row "left" chains are resolved with a running minimum.
+  in-row "left" chains are resolved with a running minimum; a Python loop
+  on every device.
 
 Conventions: ``log_probs [B, T, C]`` (class 0 blank), ``labels [B, L]``.
 Outputs are index sequences, batch-major.
@@ -18,12 +24,18 @@ Outputs are index sequences, batch-major.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from handwriting_line_generation_tpu_torch import kernels
+from handwriting_line_generation_tpu_torch.utils import tracing
+
 BIG = 1e30
+_MAX_STATES = 1024                 # 8 warps x 32 lanes x 4 states
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _extend_labels(labels: torch.Tensor) -> torch.Tensor:
@@ -55,9 +67,26 @@ def viterbi_align(log_probs: torch.Tensor, labels: torch.Tensor,
 
     A state's move is 1 (from s-1) only when strictly better than staying,
     and 2 (skip from s-2) only when strictly better than both; the final
-    state is the last blank when its score is >= the last label's."""
-    return viterbi_backtrace(*viterbi_moves(log_probs, labels,
-                                            label_lengths))
+    state is the last blank when its score is >= the last label's.  The
+    kernel for a CUDA tensor, the plain version for a CPU tensor; any
+    other device raises.  While tracing is on, the kernel's launches in the
+    call (1 or 0) are counted as ``<root>.align_launches``, by the prefix
+    of the root span it runs under (``recon.align_launches`` in a served
+    reconstruction)."""
+    on_card = log_probs.device.type == "cuda"
+    if on_card:
+        aligned = viterbi_align_cuda(log_probs, labels, label_lengths)
+    elif log_probs.device.type == "cpu":
+        aligned = viterbi_backtrace(*viterbi_moves(log_probs, labels,
+                                                   label_lengths))
+    else:
+        raise ValueError(f"viterbi_align runs on cuda or cpu, not "
+                         f"{log_probs.device}")
+    if tracing.enabled():
+        root = tracing.root()
+        tracing.count(f"{root.split('.')[0]}.align_launches" if root
+                      else "align_launches", int(on_card))
+    return aligned
 
 
 def viterbi_moves(log_probs: torch.Tensor, labels: torch.Tensor,
@@ -76,7 +105,7 @@ def viterbi_moves(log_probs: torch.Tensor, labels: torch.Tensor,
     ext = _extend_labels(labels)                         # [B, S]
     S = ext.shape[1]
     dev = log_probs.device
-    ext_m2 = F.pad(ext[:, :-2], (2, 0), value=0)
+    ext_m2 = F.pad(ext, (2, 0))[:, :S]                   # S = 1 too
     can_skip = (ext != 0) & (ext != ext_m2)
     s_idx = torch.arange(S, device=dev)[None, :]
     lens = label_lengths.to(dev).long()
@@ -115,6 +144,71 @@ def viterbi_backtrace(moves: torch.Tensor, j: torch.Tensor,
         j = j - torch.gather(deltas[t], 1, j[:, None])[:, 0]
         states.append(j)
     return torch.gather(ext, 1, torch.stack(states[::-1], dim=1))
+
+
+def _viterbi_library() -> ctypes.CDLL:
+    lib = kernels.load("viterbi")
+    lib.viterbi_scratch_bytes.argtypes = [ctypes.c_int] * 3
+    lib.viterbi_scratch_bytes.restype = ctypes.c_longlong
+    fn = lib.viterbi_align
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def viterbi_align_cuda(log_probs: torch.Tensor, labels: torch.Tensor,
+                       label_lengths: torch.Tensor) -> torch.Tensor:
+    """:func:`viterbi_align` through the CUDA kernel, one launch.
+
+    ``log_probs`` float32 or bfloat16 ``[B, T, C]``, ``labels [B, L]`` on
+    the same card, at most 511 positions; ``label_lengths [B]`` is copied
+    there.  Labels and lengths go to the kernel as int32, the output comes
+    back in the labels' dtype.  The sums are taken in the log-probs' dtype,
+    as the plain version takes them.  ``launches`` counts the kernel's
+    launches."""
+    if log_probs.device.type != "cuda":
+        raise ValueError(f"the Viterbi kernel takes CUDA tensors, got "
+                         f"{log_probs.device}")
+    if log_probs.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"log_probs must be float32 or bfloat16, got "
+                        f"{log_probs.dtype}")
+    if log_probs.ndim != 3 or labels.ndim != 2:
+        raise ValueError(f"want log_probs [B, T, C] and labels [B, L], got "
+                         f"{tuple(log_probs.shape)} and "
+                         f"{tuple(labels.shape)}")
+    B, T, C = log_probs.shape
+    L = labels.shape[1]
+    if labels.shape[0] != B or tuple(label_lengths.shape) != (B,):
+        raise ValueError(f"labels {tuple(labels.shape)} and label_lengths "
+                         f"{tuple(label_lengths.shape)} do not fit batch {B}")
+    if labels.device != log_probs.device:
+        raise ValueError(f"labels are on {labels.device}, log_probs on "
+                         f"{log_probs.device}")
+    if 2 * L + 1 > _MAX_STATES or T < 1:
+        raise ValueError(f"the Viterbi kernel takes 1 frame or more and "
+                         f"labels of at most {(_MAX_STATES - 1) // 2} "
+                         f"positions, got T = {T}, L = {L}")
+    dev = log_probs.device
+    lp = log_probs.contiguous()
+    lab = labels.to(torch.int32).contiguous()
+    lens = label_lengths.to(dev, torch.int32).contiguous()
+    out = torch.empty((B, T), dtype=torch.int32, device=dev)
+    lib = _viterbi_library()
+    nbytes = lib.viterbi_scratch_bytes(B, T, L)
+    scratch = (torch.empty(nbytes, dtype=torch.uint8, device=dev)
+               if nbytes > 0 else None)
+    err = lib.viterbi_align(
+        lp.data_ptr(), lab.data_ptr(), lens.data_ptr(), out.data_ptr(),
+        0 if scratch is None else scratch.data_ptr(), B, T, L, C,
+        _KERNEL_DTYPES[lp.dtype], torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"viterbi kernel launch failed: CUDA error {err}")
+    viterbi_align_cuda.launches += 1
+    return out.to(labels.dtype)
+
+
+viterbi_align_cuda.launches = 0
 
 
 def dtw_align(log_probs: torch.Tensor, labels: torch.Tensor,

@@ -11,7 +11,9 @@ with TF32 off:
 
 * per layer, CUDA-event medians of 10 runs after 3 warm-ups: the HWR
   forward, ``StyleTrunk``, dispatch + extractor bank, global branch +
-  heads, the ``viterbi_align`` recursion and its backtrace, the generator;
+  heads, the ``viterbi_align`` kernel (one launch, the path that runs on
+  the card) and its plain version's recursion and backtrace, the
+  generator;
 * the two end-to-end rates, extracted lines/s (``extract_style``) and
   autoencoded lines/s (``autoencode``), the same way;
 * over one profiled window of 3 autoencodes: wall time (host clock, ending
@@ -43,7 +45,7 @@ from handwriting_line_generation_tpu_torch.models.hw_with_style import (
     HWWithStyle, collapse_author_batch,
 )
 from handwriting_line_generation_tpu_torch.ops.align import (
-    viterbi_backtrace, viterbi_moves,
+    viterbi_align, viterbi_backtrace, viterbi_moves,
 )
 from handwriting_line_generation_tpu_torch.ops.augment import \
     dequantize_image
@@ -136,6 +138,7 @@ def layer_times(model: HWWithStyle, image, label, lens, frames) -> dict:
         "StyleTrunk": ms(lambda: enc.trunk(img_c.permute(0, 3, 1, 2))),
         "dispatch + extractor bank": ms(lambda: enc.char_styles(x, recog)),
         "global branch + heads": ms(lambda: enc.heads(x, recog, *chars)),
+        "viterbi kernel": ms(lambda: viterbi_align(pred, label, lens)),
         "viterbi recursion": ms(lambda: viterbi_moves(pred, label, lens)),
         "viterbi backtrace": ms(lambda: viterbi_backtrace(moves, j_final,
                                                           ext)),

@@ -13,6 +13,7 @@ import torch
 from handwriting_line_generation_tpu.ops import align as J
 from handwriting_line_generation_tpu_torch.ops import align as P
 from handwriting_line_generation_tpu_torch.ops.ctc import mask_frames_to_blank
+from test_torch_kernels import VITERBI_CASES, _viterbi_case
 from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 
@@ -122,3 +123,83 @@ def test_viterbi_is_optimal_bruteforce():
                  if _collapse(seq) == [1, 2])
     assert score(aligned) >= best_s - 1e-5
     assert _collapse(aligned) == [1, 2]
+
+
+def test_viterbi_cpu_takes_the_plain_path():
+    """A CPU tensor runs ``viterbi_moves`` + ``viterbi_backtrace`` and
+    launches no kernel."""
+    rng = np.random.default_rng(3)
+    B, T, C, L = 3, 20, 6, 5
+    lens = np.array([5, 0, 3], np.int32)
+    lp = torch.from_numpy(_log_probs(rng, B, T, C))
+    labels = torch.from_numpy(_labels(rng, B, L, C, lens))
+    lens = torch.from_numpy(lens)
+    before = P.viterbi_align_cuda.launches
+    got = P.viterbi_align(lp, labels, lens)
+    assert P.viterbi_align_cuda.launches == before
+    assert got.dtype == labels.dtype
+    assert torch.equal(got, P.viterbi_backtrace(*P.viterbi_moves(
+        lp, labels, lens)))
+
+
+@pytest.mark.parametrize("fn,device", [("viterbi_align", "meta"),
+                                       ("viterbi_align_cuda", "cpu")])
+def test_viterbi_refuses_a_device_it_does_not_run_on(fn, device):
+    """Neither the CPU nor a CUDA tensor: ``viterbi_align`` raises, with
+    no fallback; the kernel's wrapper takes CUDA tensors only."""
+    lp = torch.zeros((2, 8, 5), device=device)
+    labels = torch.ones((2, 3), dtype=torch.int32, device=device)
+    before = P.viterbi_align_cuda.launches
+    with pytest.raises(ValueError, match="(?i)cuda"):
+        getattr(P, fn)(lp, labels, torch.tensor([3, 1]))
+    assert P.viterbi_align_cuda.launches == before
+
+
+def test_viterbi_kernel_source_is_built():
+    """``csrc/viterbi.cu`` is among the sources ``kernels.build`` compiles,
+    and exports the two entry points the wrapper binds."""
+    from handwriting_line_generation_tpu_torch import kernels
+    assert "viterbi" in kernels.SOURCES
+    src = (kernels.CSRC_DIR / "viterbi.cu").read_text()
+    for entry in ("viterbi_align(", "viterbi_scratch_bytes("):
+        assert 'extern "C"' in src and entry in src
+
+
+@pytest.mark.parametrize("case", VITERBI_CASES)
+def test_viterbi_kernel_cases_equal_jax(case):
+    """The inputs of every card case of ``test_viterbi_kernel_equals_plain``
+    (the reconstruction cell's shape, each warp boundary, L = 0 and 511,
+    T = 1 and 2, repeats, ties, lines too long, masked frames, bf16, int64,
+    the global-scratch shape): the plain path equals the JAX package's
+    ``viterbi_align`` on them, so the kernel, held bit for bit to the plain
+    path on the card, is held to the reference too.
+
+    Two inputs the JAX package does not take: labels of width 0 (its
+    scan's carry changes shape), given instead as one zero column, whose
+    states past ``2 len + 1 = 1`` no valid state reads; and T = 1 (its
+    backtrace indexes an empty moves array), where the path is the final
+    state alone, checked against the rule: the blank ``2 len`` when its
+    first-frame score is >= the last label's, where only states 0 and 1
+    have one."""
+    lp, labels, lens = _viterbi_case(case)
+    got = P.viterbi_align(lp, labels, lens)
+    if lp.shape[1] == 1:
+        with pytest.raises(IndexError):
+            J.viterbi_align(jnp.asarray(lp.numpy()),
+                            jnp.asarray(labels.numpy()),
+                            jnp.asarray(lens.numpy()))
+        ext = np.zeros((labels.shape[0], 2 * labels.shape[1] + 1), np.int64)
+        ext[:, 1::2] = labels.numpy()
+        for b, n in enumerate(lens.tolist()):
+            a0 = [lp[b, 0, ext[b, s]].item() if s < 2 else -1e30
+                  for s in range(2 * n + 1)]
+            s = 2 * n if a0[2 * n] >= a0[max(2 * n - 1, 0)] else 2 * n - 1
+            assert got[b, 0].item() == ext[b, s]
+        return
+    if labels.shape[1] == 0:
+        labels = torch.zeros((labels.shape[0], 1), dtype=labels.dtype)
+    lp_j = (jnp.asarray(lp.float().numpy()).astype(jnp.bfloat16)
+            if lp.dtype == torch.bfloat16 else jnp.asarray(lp.numpy()))
+    want = J.viterbi_align(lp_j, jnp.asarray(labels.numpy()),
+                           jnp.asarray(lens.numpy()))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

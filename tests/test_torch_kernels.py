@@ -261,7 +261,9 @@ def _style_model():
 
 @pytest.mark.parametrize("masked", [False, True])
 def test_viterbi_align_card_equals_cpu(cuda, masked):
-    from handwriting_line_generation_tpu_torch.ops.align import viterbi_align
+    from handwriting_line_generation_tpu_torch.ops.align import (
+        viterbi_align, viterbi_align_cuda,
+    )
     g = torch.Generator().manual_seed(3)
     B, T, C, L = 8, 64, 12, 20
     lp = torch.log_softmax(torch.randn((B, T, C), generator=g), -1)
@@ -272,8 +274,126 @@ def test_viterbi_align_card_equals_cpu(cuda, masked):
         lp = ctc.mask_frames_to_blank(
             lp, torch.randint(1, T + 1, (B,), generator=g))
     want = viterbi_align(lp, labels, lens)
+    before = viterbi_align_cuda.launches
     got = viterbi_align(lp.to(cuda), labels.to(cuda), lens.to(cuda))
+    assert viterbi_align_cuda.launches == before + 1
     assert torch.equal(got.cpu(), want)
+
+
+def _viterbi_inputs(B, T, C, L, seed, lens=None, frames=None):
+    """Log-softmax of seeded normals ``[B, T, C]``, labels in ``[1, C)``
+    zero past each length (one line at ``L`` unless ``lens`` is given), and
+    frames past ``frames`` masked to blank when given."""
+    g = torch.Generator().manual_seed(seed)
+    lp = torch.log_softmax(torch.randn((B, T, C), generator=g), -1)
+    if lens is None:
+        lens = torch.randint(0, L + 1, (B,), generator=g)
+        lens[0] = L
+    labels = torch.randint(1, C, (B, L), generator=g, dtype=torch.int32)
+    labels = torch.where(torch.arange(L) < lens[:, None], labels, 0)
+    if frames is not None:
+        lp = ctc.mask_frames_to_blank(lp, frames)
+    return lp, labels, lens
+
+
+def _viterbi_case(name):
+    g = torch.Generator().manual_seed(11)
+    if name == "cell":
+        # the reconstruction cell: B = 64, T = 256, C = 80, L = 72,
+        # transcripts of 24-72 characters, ink of 512-1024 px
+        B, T, L = 64, 256, 72
+        lens = torch.randint(24, L + 1, (B,), generator=g)
+        width = torch.randint(512, 1025, (B,), generator=g)
+        return _viterbi_inputs(B, T, 80, L, 1, lens, (width + 3) // 4)
+    if name.startswith("L="):
+        # S = 2L + 1 on either side of a lane's and a warp's states
+        L = int(name[2:])
+        return _viterbi_inputs(6, 2 * L + 24, 12, L, L)
+    if name.startswith("T="):
+        return _viterbi_inputs(5, int(name[2:]), 7, 5, 3)
+    if name == "repeats":
+        # runs of one character: the skip between them is forbidden
+        lp, labels, lens = _viterbi_inputs(4, 48, 7, 12, 4,
+                                           torch.tensor([12, 9, 6, 12]))
+        labels[0] = torch.tensor([3, 3, 3, 5, 5, 1, 1, 1, 1, 2, 2, 3])
+        labels[3] = 4
+        return lp, labels, lens
+    if name == "too_long":
+        # lines that cannot fit their frames, with and without a mask
+        lens = torch.tensor([24, 24, 20, 3, 24, 0])
+        return _viterbi_inputs(6, 16, 9, 24, 5, lens,
+                               torch.tensor([16, 6, 16, 2, 1, 16]))
+    if name == "masked":
+        return _viterbi_inputs(8, 96, 12, 30, 6, None,
+                               torch.randint(1, 97, (8,), generator=g))
+    if name == "ties":
+        # three distinct log-probs a frame: ties at every comparison
+        lp, labels, lens = _viterbi_inputs(8, 64, 5, 16, 7)
+        q = torch.randint(0, 3, lp.shape, generator=g).float()
+        return torch.log_softmax(q, -1), labels, lens
+    if name == "bf16":
+        lp, labels, lens = _viterbi_case("cell")
+        lens[1] = 72
+        lp = ctc.mask_frames_to_blank(lp, torch.tensor([256, 60] + [256] * 62))
+        return lp.to(torch.bfloat16), labels, lens
+    if name == "bf16_too_long":
+        lp, labels, lens = _viterbi_case("too_long")
+        return lp.to(torch.bfloat16), labels, lens
+    if name == "int64":
+        lp, labels, lens = _viterbi_case("masked")
+        return lp, labels.long(), lens.long()
+    if name == "global_scratch":
+        # (T - 1) x 64 bytes of moves a line: more than shared memory holds
+        return _viterbi_inputs(3, 4000, 20, 72, 8)
+    if name == "max_states":
+        return _viterbi_inputs(2, 40, 30, 511, 9,
+                               torch.tensor([511, 300]))
+    raise KeyError(name)
+
+
+VITERBI_CASES = ["cell", "L=15", "L=16", "L=31", "L=32", "L=63", "L=64",
+                 "L=127", "L=128", "L=300", "L=0", "T=1", "T=2", "repeats",
+                 "too_long", "masked", "ties", "bf16", "bf16_too_long",
+                 "int64", "global_scratch", "max_states"]
+
+
+@pytest.mark.parametrize("case", VITERBI_CASES)
+def test_viterbi_kernel_equals_plain(cuda, case):
+    """One launch of ``csrc/viterbi.cu`` a call, its path bit for bit the
+    plain version's, on the CPU and on the card; its last label is the
+    plain recursion's final state's."""
+    from handwriting_line_generation_tpu_torch.ops import align
+    lp, labels, lens = _viterbi_case(case)
+    before = align.viterbi_align_cuda.launches
+    got = align.viterbi_align(lp.to(cuda), labels.to(cuda), lens.to(cuda))
+    torch.cuda.synchronize()
+    assert align.viterbi_align_cuda.launches == before + 1
+    assert got.dtype == labels.dtype and got.shape == lp.shape[:2]
+    moves, final, ext = align.viterbi_moves(lp, labels, lens)
+    want = align.viterbi_backtrace(moves, final, ext)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got[:, -1].cpu(), ext.gather(1, final[:, None])[:, 0])
+    on_card = align.viterbi_backtrace(*align.viterbi_moves(
+        lp.to(cuda), labels.to(cuda), lens.to(cuda)))
+    assert torch.equal(got, on_card)
+
+
+def test_viterbi_kernel_repeats_and_rejects_bad_inputs(cuda):
+    from handwriting_line_generation_tpu_torch.ops import align
+    lp, labels, lens = (x.to(cuda) for x in _viterbi_case("cell"))
+    first = align.viterbi_align_cuda(lp, labels, lens)
+    assert torch.equal(align.viterbi_align_cuda(lp, labels, lens), first)
+    with pytest.raises(TypeError):
+        align.viterbi_align_cuda(lp.half(), labels, lens)
+    with pytest.raises(TypeError):
+        align.viterbi_align(lp.double(), labels, lens)
+    with pytest.raises(ValueError):
+        align.viterbi_align_cuda(lp, labels.cpu(), lens)
+    with pytest.raises(ValueError):
+        align.viterbi_align_cuda(lp, labels[:3], lens)
+    wide = torch.ones((lp.shape[0], 512), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        align.viterbi_align_cuda(lp, wide, lens)
 
 
 def test_autoencode_card_matches_cpu(cuda):

@@ -264,6 +264,7 @@ def test_spans_nest_under_the_request_and_counters_read_the_batch():
     assert got["recon.lattice_used"] == int((2 * lens + 1).sum())
     assert got["recon.lattice_slots"] == B * (2 * Lp + 1)
     assert got["recon.align_steps"] == W // 4 - 1
+    assert got["recon.align_launches"] == 0      # the CPU's plain path
     assert 0 < got["recon.lattice_used"] <= got["recon.lattice_slots"]
     tracing.disable()
     tracing.reset()
