@@ -48,10 +48,8 @@ Phases, in order; any failure exits non-zero:
    epilogue path (max abs <= 1e-3), the card's styles against the CPU's
    (TF32 off), and ``StyleExtractor.extract_dataset`` over an
    ``AuthorBatcher`` behind a ``Prefetcher`` (one row per pair, in order,
-   with its ids); then
-   extracted and autoencoded lines/s (CUDA-event medians of 10 after 3
-   warm-ups, TF32 on and off), ``trace_style``'s per-layer split and one
-   profiled window's idle share;
+   with its ids); the served rates are the benchmark's cells
+   ``extract_paper_b64`` and ``autoencode_paper_b64``;
 10. main path, autoencoder pretraining — ``AutoTrainer.train`` on
     ``configs/iam_auto_2tight.json`` (``Encoder2(32)`` + the no-skip
     ``PyramidDecoder(32)`` + the ``EHWR`` head over 80 classes, Adam, f32, TF32 off, seeded
@@ -236,7 +234,7 @@ Phases, in order; any failure exits non-zero:
     against the plain path within the bf16 bound; the kernel against its
     plain version at the render's shapes); (e) ms per HWR and autoencoder
     step and per GAN cycle in float32 with TF32 off, on, and in bf16
-    (``trace_train.by_precision``);
+    (``profiling.by_precision``);
 21. the JAX package's last tools (``PERF.md`` §2, §5) — (a)
     ``scripts/mfu_report.py``'s report on the GAN cell (``iam_gan_paper``,
     B = 2 x 2, 64 x 1024 over the mini-IAM fixture, seeded, f32 with TF32
@@ -333,6 +331,9 @@ BF16_GAN_GRAD_L2 = 2 ** -5
 # sum in other orders on the two devices
 STYLE_CPU_RTOL = 1e-3
 STYLE_CPU_LINES = 4                # 2 author pairs
+# the paper model of phases 9, 15 and 19: configs/iam_gan_paper.json's
+STYLE_CONFIG = REPO / "configs" / "iam_gan_paper.json"
+STYLE_B, STYLE_A = 64, 2           # phase 9's lines, lines per author
 AUTO_CONFIG = REPO / "configs" / "iam_auto_2tight.json"
 AUTO_STEPS = 30
 AUTO_VAL_BATCHES = 2
@@ -493,11 +494,12 @@ def check_ctc(torch, ctc, T, L, seed, batch=CTC_BATCH):
     return max(e_nll, e_grad)
 
 
-def train_main_path(torch, tt, ctc, HWRTrainer, load_config,
+def train_main_path(torch, prof, ctc, HWRTrainer, load_config,
                     dtype="float32"):
     """30 train steps and 1 eval step of the HWR trainer through the CTC
     kernel, the model in ``dtype``.  Returns (launches, trainer, batch on
     the card)."""
+    from handwriting_line_generation_tpu_torch import trace_train as tt
     cfg = load_config(str(HWR_CONFIG))
     cfg.model.compute_dtype = dtype
     print(f"training config {HWR_CONFIG.name}: hwr {cfg.model.hwr.kind}/"
@@ -506,7 +508,7 @@ def train_main_path(torch, tt, ctc, HWRTrainer, load_config,
           f"{cfg.model.compute_dtype}", flush=True)
     tr = HWRTrainer(cfg, device=DEVICE)
     tr.init_state(seed=0)
-    batch = tt.batch(seed=0, device=DEVICE)
+    batch = prof.glyph_batch(tt.B, device=DEVICE)
     ctc.ctc_loss_cuda.launches = 0
     losses = [tr.train_step(*batch)[0] for _ in range(TRAIN_STEPS)]
     eval_loss, eval_logp = tr.eval_step(*batch)
@@ -524,7 +526,7 @@ def train_main_path(torch, tt, ctc, HWRTrainer, load_config,
     if launches != TRAIN_STEPS + 1:
         raise AssertionError(f"expected {TRAIN_STEPS + 1} ctc launches, got "
                              f"{launches}")
-    want = (tt.B, tt.W // 4, CTC_CLASSES)
+    want = (tt.B, prof.W // 4, CTC_CLASSES)
     if tuple(eval_logp.shape) != want:
         raise AssertionError(f"log-probs {tuple(eval_logp.shape)}, want "
                              f"{want}")
@@ -612,28 +614,28 @@ def _grads_agree(loss_k, loss_p, g_k, g_p, dtype, what):
                              f"the plain CTC")
 
 
-def time_train(tt, tr, batch, iters=10, warmup=3):
+def time_train(prof, tr, batch, iters=10, warmup=3):
     """ms per train step, by CUDA events around ``iters`` steps."""
-    return tt.event_ms(lambda: tr.train_step(*batch), iters, warmup)
+    return prof.event_ms(lambda: tr.train_step(*batch), iters, warmup)
 
 
-def time_ctc(torch, tt, F, ctc, T, L, card, batch=CTC_BATCH):
+def time_ctc(torch, prof, F, ctc, T, L, card, batch=CTC_BATCH):
     """Kernel (forward + backward, forward only), plain and F.ctc_loss
     times at one bucket, and the bound.  Returns a dict of ms."""
     x, labels, lens = ctc_inputs(torch, ctc, batch, T, CTC_CLASSES, L,
                                  seed=T)
     m = x.detach().contiguous()
     B, C = batch, CTC_CLASSES
-    t_k = tt.event_ms(lambda: ctc._launch(m, labels, lens, True), 50)
-    t_f = tt.event_ms(lambda: ctc._launch(m, labels, lens, False), 50)
+    t_k = prof.event_ms(lambda: ctc._launch(m, labels, lens, True), 50)
+    t_f = prof.event_ms(lambda: ctc._launch(m, labels, lens, False), 50)
     tfull = torch.full_like(lens, T)
-    t_p = tt.event_ms(lambda: torch.autograd.grad(ctc.ctc_loss(
+    t_p = prof.event_ms(lambda: torch.autograd.grad(ctc.ctc_loss(
         x, labels, tfull, lens, reduction="none").sum(), x), 3, warmup=1)
     xt = m.transpose(0, 1).detach().clone().requires_grad_(True)
     lab64, len64, t64 = labels.long(), lens.long(), tfull.long()
     lib = lambda: F.ctc_loss(xt, lab64, t64, len64, blank=0,
                              reduction="none", zero_infinity=True)
-    t_l = tt.event_ms(lambda: torch.autograd.grad(lib().sum(), xt), 20)
+    t_l = prof.event_ms(lambda: torch.autograd.grad(lib().sum(), xt), 20)
     with torch.no_grad():
         # values only, over the possible samples: F.ctc_loss zeroes only
         # infinite losses, and the masked frames' -1e30 keeps an
@@ -670,10 +672,37 @@ class _Prefetched:
         return self.prefetcher(self.batcher.batches(rng, shuffle), depth=2)
 
 
-def style_main_path(torch, np, ge, ts, card):
+def paper_model(device, seed=0):
+    """The paper model on ``device``, eval mode, float32, fused epilogue,
+    seeded weights and conv biases (the same on every device)."""
+    from handwriting_line_generation_tpu_torch.config import load_config
+    from handwriting_line_generation_tpu_torch.init import (
+        init_model, seed_conv_biases,
+    )
+    cfg = load_config(str(STYLE_CONFIG)).model
+    cfg.generator.fused_epilogue = True
+    cfg.compute_dtype = "float32"
+    model = init_model(cfg, seed)
+    seed_conv_biases(model.generator, seed + 1)
+    return model.to(device).eval()
+
+
+def style_inputs(torch, prof, device, seed=0):
+    """``(image [STYLE_B, 64, W, 1] f32, labels, label_lengths, frames,
+    width)``: ``profiling.glyph_batch``'s u8 lines, dequantized (-1 past
+    each line's width), and the recognizer frames ``(width + 3) // 4``
+    that cover the ink."""
+    from handwriting_line_generation_tpu_torch.ops.augment import \
+        dequantize_image
+    image, label, lens, width = prof.glyph_batch(STYLE_B, seed, device)
+    frames = torch.clamp((width + 3) // 4, 1, prof.W // 4)
+    return dequantize_image(image, width), label, lens, frames, width
+
+
+def style_main_path(torch, np, ge, prof, card):
     """Phase 9: style extraction and autoencode on the paper model, its
-    checks, rates and per-layer split.  Returns the Viterbi kernel's row
-    of the kernels line."""
+    checks and the Viterbi kernel's times.  Returns the Viterbi kernel's
+    row of the kernels line."""
     from handwriting_line_generation_tpu_torch.charset import IAM_CHARSET
     from handwriting_line_generation_tpu_torch.config import DataConfig
     from handwriting_line_generation_tpu_torch.data.datasets import (
@@ -684,17 +713,16 @@ def style_main_path(torch, np, ge, ts, card):
     from handwriting_line_generation_tpu_torch.ops.align import (
         viterbi_align, viterbi_align_cuda, viterbi_backtrace, viterbi_moves,
     )
-    model = ts.paper_model(DEVICE)
+    model = paper_model(DEVICE)
     c = model.cfg
-    print(f"style config {ts.CONFIG.name}: hwr {c.hwr.kind}/{c.hwr.norm}, "
+    print(f"style config {STYLE_CONFIG.name}: hwr {c.hwr.kind}/{c.hwr.norm}, "
           f"style {c.style.kind} dim {c.style.dim} char_dim "
           f"{c.style.char_dim} window {c.style.window} K "
           f"{c.style.char_capacity} style_dim {c.style.style_dim}, "
           f"generator {c.generator.dim}, {c.compute_dtype}, fused epilogue; "
-          f"B={ts.B}, a={ts.A}, 64x{ts.tt.W}", flush=True)
-    data = ts.inputs(DEVICE)
-    image, label, lens, frames, width = data
-    B, A = ts.B, ts.A
+          f"B={STYLE_B}, a={STYLE_A}, 64x{prof.W}", flush=True)
+    image, label, lens, frames, width = style_inputs(torch, prof, DEVICE)
+    B, A = STYLE_B, STYLE_A
     noise = lambda: torch.Generator(DEVICE).manual_seed(0)
     with torch.inference_mode():
         style, pred = model.extract_style(image, A, frame_lengths=frames)
@@ -738,9 +766,8 @@ def style_main_path(torch, np, ge, ts, card):
                              f"autoencode and per reconstruct, got "
                              f"{viterbi_launches} and {served_launches}")
     with torch.inference_mode():
-        kernel_ms = ts.event_median_ms(lambda: viterbi_align(pred, label,
-                                                             lens))
-        plain_ms = ts.event_median_ms(lambda: viterbi_backtrace(
+        kernel_ms = prof.event_ms(lambda: viterbi_align(pred, label, lens))
+        plain_ms = prof.event_ms(lambda: viterbi_backtrace(
             *viterbi_moves(pred, label, lens)))
     # bytes: each line's 2 len + 1 emissions a frame, the labels, the
     # lengths and the [B, T] output, once each, at 3.35 TB/s
@@ -767,7 +794,7 @@ def style_main_path(torch, np, ge, ts, card):
     if launches != 9:
         raise AssertionError(f"expected 9 gen_epilogue launches per "
                              f"autoencode forward, got {launches}")
-    if tuple(recon.shape) != (B, 64, ts.tt.W, 1) \
+    if tuple(recon.shape) != (B, 64, prof.W, 1) \
             or not bool(torch.isfinite(recon).all()) \
             or recon.abs().max().item() > 1.0:
         raise AssertionError("autoencode: bad image")
@@ -777,7 +804,7 @@ def style_main_path(torch, np, ge, ts, card):
 
     # the same model on the CPU, on the first author pairs
     n = STYLE_CPU_LINES
-    cpu_model = ts.paper_model("cpu")
+    cpu_model = paper_model("cpu")
     with torch.inference_mode():
         style_cpu, _ = cpu_model.extract_style(
             image[:n].cpu(), A, frame_lengths=frames[:n].cpu())
@@ -798,8 +825,8 @@ def style_main_path(torch, np, ge, ts, card):
         load=lambda a=img_np[i, :, :wid[i], 0]: a, rid=f"line{i:02d}")
         for i in range(B)]
     batcher = AuthorBatcher(records, IAM_CHARSET, B // A, A,
-                            DataConfig(width_buckets=(ts.tt.W,),
-                                       label_buckets=(ts.tt.L,)),
+                            DataConfig(width_buckets=(prof.W,),
+                                       label_buckets=(prof.L,)),
                             with_fg=False)
     bank = StyleExtractor(model, device=DEVICE).extract_dataset(
         _Prefetched(batcher, Prefetcher))
@@ -815,20 +842,6 @@ def style_main_path(torch, np, ge, ts, card):
           f"{d:.3e} {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError("extract_dataset: wrong rows")
-
-    # rates (TF32 on here; off in the report), then the per-layer split
-    # and one profiled window
-    torch.backends.cudnn.allow_tf32 = True
-    torch.backends.cuda.matmul.allow_tf32 = True
-    on = ts.end_to_end(model, *data[:4])
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print(f"extract_style {on['extract_ms']:.3f} ms: "
-          f"{on['extracted_lines_per_s']:.1f} extracted lines/s; autoencode "
-          f"{on['autoencode_ms']:.3f} ms: "
-          f"{on['autoencoded_lines_per_s']:.1f} autoencoded lines/s "
-          f"(B={B}, 64x{ts.tt.W}, f32, TF32 on) {card}", flush=True)
-    ts.report(model, data, card)
     del model
     torch.cuda.empty_cache()
     return viterbi_row
@@ -854,6 +867,7 @@ def auto_main_path(torch, ctc, ta, load_config, run_dir, dtype="float32"):
     fresh trainer resumes from ``checkpoint-latest`` and its next step is
     held against the first trainer's.  Returns (CTC launches, trainer,
     batch)."""
+    from handwriting_line_generation_tpu_torch import profiling as prof
     from handwriting_line_generation_tpu_torch.training.auto_trainer import \
         AutoTrainer
     cfg = load_config(str(AUTO_CONFIG))
@@ -862,7 +876,7 @@ def auto_main_path(torch, ctc, ta, load_config, run_dir, dtype="float32"):
     print(f"autoencoder config {AUTO_CONFIG.name}: kind {ae.kind}, "
           f"{ae.hwr_classes} classes, lr {cfg.optimizer.lr}, betas "
           f"{cfg.optimizer.betas}, loss weights {cfg.trainer.loss_weights}, "
-          f"{cfg.model.compute_dtype}; B={ta.B}, 64x{ta.tt.W}", flush=True)
+          f"{cfg.model.compute_dtype}; B={ta.B}, 64x{prof.W}", flush=True)
     cfg.trainer.save_dir = run_dir
     cfg.trainer.log_step = 1
     cfg.trainer.val_step = cfg.trainer.save_step_minor = AUTO_STEPS
@@ -942,7 +956,7 @@ def check_auto_grads(torch, ctc, ta, batch, dtype="float32"):
                  f"autoencoder step (T={T})")
 
 
-def auto_phase(torch, tt, F, ctc, ta, load_config, card, run_dir):
+def auto_phase(torch, prof, F, ctc, ta, load_config, card, run_dir):
     """Phase 10, its checkpoints in ``run_dir``.  Returns (CTC launches,
     max CTC error, the CTC times at the main bucket)."""
     launches, tr, batch = auto_main_path(torch, ctc, ta, load_config,
@@ -952,7 +966,7 @@ def auto_phase(torch, tt, F, ctc, ta, load_config, card, run_dir):
               for T, L in AUTO_CTC_BUCKETS)
     ta.report(tr, _args(batch), card)
     T, L = AUTO_CTC_BUCKETS[AUTO_CTC_MAIN]
-    times = time_ctc(torch, tt, F, ctc, T, L, card, batch=ta.B)
+    times = time_ctc(torch, prof, F, ctc, T, L, card, batch=ta.B)
     del tr
     torch.cuda.empty_cache()
     return launches, err, times
@@ -1056,6 +1070,7 @@ def gan_main_path(torch, ctc, tg, hwr_ckpt, auto_ckpt, dtype="float32"):
     """Two 7-lesson cycles of the paper GAN with its pretrained recognizer
     and perceptual encoder loaded from the port's own checkpoints, the
     model in ``dtype``.  Returns (CTC launches, trainer, batches)."""
+    from handwriting_line_generation_tpu_torch import profiling as prof
     from handwriting_line_generation_tpu_torch.utils.checkpoint import (
         extract_subtree,
     )
@@ -1067,7 +1082,7 @@ def gan_main_path(torch, ctc, tg, hwr_ckpt, auto_ckpt, dtype="float32"):
           f"{c.model.style.style_dim}, generator {c.model.generator.dim}, "
           f"discriminator {c.model.discriminator.dim}, encoder "
           f"{c.trainer.encoder_type}, augmentation {c.data.augmentation}, "
-          f"loss weights {c.trainer.loss_weights}; B={tg.B}, 64x{tg.tt.W}; "
+          f"loss weights {c.trainer.loss_weights}; B={tg.B}, 64x{prof.W}; "
           f"gen_spaced_len {tr.gen_spaced_len}", flush=True)
     load = lambda p: torch.load(p + ".pt", map_location="cpu",
                                 weights_only=True)["model"]
@@ -1137,7 +1152,7 @@ def gan_main_path(torch, ctc, tg, hwr_ckpt, auto_ckpt, dtype="float32"):
     return launches, tr, batches
 
 
-def gan_phase(torch, tt, F, ctc, card, hwr_ckpt, auto_ckpt):
+def gan_phase(torch, prof, F, ctc, card, hwr_ckpt, auto_ckpt):
     """Phase 11.  Returns (CTC launches, max CTC error, the CTC times at
     the main bucket)."""
     from handwriting_line_generation_tpu_torch import trace_gan as tg
@@ -1148,7 +1163,7 @@ def gan_phase(torch, tt, F, ctc, card, hwr_ckpt, auto_ckpt):
               for T, L in GAN_CTC_BUCKETS)
     tg.report(tr, batches, card)
     T, L = GAN_CTC_BUCKETS[0]
-    times = time_ctc(torch, tt, F, ctc, T, L, card, batch=tg.B)
+    times = time_ctc(torch, prof, F, ctc, T, L, card, batch=tg.B)
     del tr
     torch.cuda.empty_cache()
     return launches, err, times
@@ -1202,6 +1217,7 @@ def gan_train_main_path(torch, ctc, tg, hwr_ckpt, auto_ckpt, run_dir):
     ``run_dir``/a; the run directory as it stood after lesson 7 is copied
     to ``run_dir``/b and a fresh trainer resumes it to the end.  Returns
     (CTC launches, the first trainer, batches, validation batches)."""
+    from handwriting_line_generation_tpu_torch import profiling as prof
     from handwriting_line_generation_tpu_torch.utils import checkpoint as ck
     from handwriting_line_generation_tpu_torch.utils.png import read_png_gray
 
@@ -1277,7 +1293,7 @@ def gan_train_main_path(torch, ctc, tg, hwr_ckpt, auto_ckpt, run_dir):
     for it in (K, 2 * K):
         for kind, shape, rules in (
                 ("gen", (B * (H + 6), 4 * T), [(H, H + 6, 60)]),
-                ("recon", (B * (2 * H + 8), tg.tt.W),
+                ("recon", (B * (2 * H + 8), prof.W),
                  [(H, H + 2, 128), (2 * H + 2, 2 * H + 8, 60)])):
             px = read_png_gray(str(run_a / "samples" /
                                    f"iter{it}_{kind}.png"))
@@ -1287,7 +1303,7 @@ def gan_train_main_path(torch, ctc, tg, hwr_ckpt, auto_ckpt, run_dir):
                                      f"want {shape} and its rules")
     scores = (run_a / "samples" / "disc_scores.txt").read_text().splitlines()
     print(f"sample strips decode to {B * (H + 6)}x{4 * T} (gen) and "
-          f"{B * (2 * H + 8)}x{tg.tt.W} (recon); disc_scores.txt: {scores}",
+          f"{B * (2 * H + 8)}x{prof.W} (recon); disc_scores.txt: {scores}",
           flush=True)
     if len(scores) != 2:
         raise AssertionError("disc_scores.txt needs a line a dump")
@@ -1332,7 +1348,7 @@ def gan_train_main_path(torch, ctc, tg, hwr_ckpt, auto_ckpt, run_dir):
     return launches, tr, images, valid
 
 
-def time_gan_train(torch, tg, tr, images, valid, card):
+def time_gan_train(tg, tr, images, valid, card):
     """Lines/s through ``GanTrainer.train`` (7-lesson blocks, no SWA,
     validation, dumps or saves, as the paper config trains between its
     log steps) against ``run_lesson`` cycles, alternated, CUDA events, and
@@ -1341,6 +1357,7 @@ def time_gan_train(torch, tg, tr, images, valid, card):
     dump."""
     import statistics
 
+    from handwriting_line_generation_tpu_torch.profiling import event_ms
     from handwriting_line_generation_tpu_torch.utils.checkpoint import \
         save_checkpoint
     batches = itertools.cycle(images)
@@ -1362,15 +1379,10 @@ def time_gan_train(torch, tg, tr, images, valid, card):
     tr.run_lesson = timed
 
     def events(fn):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
+        ms = event_ms(fn, iters=1, warmup=0)
         host.append(time.perf_counter() - t0)
-        return start.elapsed_time(end)
+        return ms
     n = len(tr.curriculum.stages[0][1])
     run = {"run_lesson": lambda: tg.cycle(tr, batches),
            "train": lambda: tr.train(batches, iterations=tr.step + n,
@@ -1423,7 +1435,7 @@ def gan_train_phase(torch, ctc, card, hwr_ckpt, auto_ckpt, run_dir):
     from handwriting_line_generation_tpu_torch import trace_gan as tg
     launches, tr, images, valid = gan_train_main_path(
         torch, ctc, tg, hwr_ckpt, auto_ckpt, run_dir)
-    time_gan_train(torch, tg, tr, images, valid, card)
+    time_gan_train(tg, tr, images, valid, card)
     del tr
     torch.cuda.empty_cache()
     return launches
@@ -1459,23 +1471,17 @@ def _pairs(overrides):
 def _cli_run(torch, ctc, cli, name, root, overrides, *flags, prof=False):
     """``train.main`` on the card; returns (CTC launches, seconds, device
     busy seconds or None)."""
-    from torch.profiler import ProfilerActivity, profile
-    from handwriting_line_generation_tpu_torch.trace_forward import \
-        _device_us
+    from handwriting_line_generation_tpu_torch.profiling import \
+        profiled_window
     argv = ["-c", str(REPO / "configs" / name), "--device", DEVICE,
             *_pairs([f"trainer.save_dir={root}", *overrides]), *flags]
     print("train " + " ".join(argv[2:]), flush=True)
     ctc.ctc_loss_cuda.launches = 0
     busy = None
     if prof:                            # device activity only: no op records
-        with profile(activities=[ProfilerActivity.CUDA]) as p:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            rc = cli.main(argv)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-        busy = sum(_device_us(e) for e in p.key_averages() if
-                   e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+        rcs = []
+        win = profiled_window(lambda: rcs.append(cli.main(argv)), n=1)
+        rc, secs, busy = rcs[0], win["wall_ms"] / 1e3, win["busy_ms"] / 1e3
         if not busy > 0:
             raise AssertionError(f"the profiler saw no device time in "
                                  f"train -c {name}")
@@ -1705,7 +1711,7 @@ def hwr_cli_timing(torch, ctc, cli, root, overrides, card):
     return rates
 
 
-def cli_phase(torch, tt, F, ctc, card, root):
+def cli_phase(torch, prof, F, ctc, card, root):
     """Phase 14.  Returns the kernels-line rows of the CLI's CTC paths."""
     from handwriting_line_generation_tpu_torch import train as cli
     from handwriting_line_generation_tpu_torch.data import datasets as D
@@ -1845,7 +1851,7 @@ def cli_phase(torch, tt, F, ctc, card, root):
             T, L = cfg.model.max_gen_length, max(cfg.data.label_buckets)
         err = check_ctc(torch, ctc, T, L, seed=T + L, batch=B)
         rows.append((f"CLI {name}", (B, T, L), launches[name], err,
-                     time_ctc(torch, tt, F, ctc, T, L, card, batch=B)))
+                     time_ctc(torch, prof, F, ctc, T, L, card, batch=B)))
     return rows
 
 
@@ -2118,17 +2124,17 @@ def infer_chain(torch, np, ge, run_dir, config, overrides, work):
     return total
 
 
-def _eval_batches(np, tt):
+def _eval_batches(np, prof):
     """``EVAL_BATCHES`` batch dicts of ``EVAL_B_MAIN`` seeded u8 glyph
-    lines of 64 x 1024 (``trace_train.batch``), dequantized on the host,
+    lines of 64 x 1024 (``profiling.glyph_batch``), dequantized on the host,
     as 16 author pairs shared by every batch."""
     from handwriting_line_generation_tpu_torch.charset import IAM_CHARSET
     from handwriting_line_generation_tpu_torch.ops.augment import \
         dequantize_image
     out = []
     for i in range(EVAL_BATCHES):
-        image, label, lens, width = tt.batch(seed=100 + i, device="cpu",
-                                             n=EVAL_B_MAIN)
+        image, label, lens, width = prof.glyph_batch(EVAL_B_MAIN, 100 + i,
+                                                   "cpu")
         lab, n = label.numpy(), lens.numpy()
         out.append(dict(
             image=dequantize_image(image, width).numpy(), label=lab,
@@ -2147,7 +2153,7 @@ def _timed(torch, fn):
     return time.perf_counter() - t0, out
 
 
-def infer_rates(torch, np, ge, tt, ts, card):
+def infer_rates(torch, np, ge, prof, card):
     """Phase 15's numbers on the paper model at full width (f32, seeded
     weights and conv biases): evaluated lines/s with no channel and with
     every channel, through the kernel and the plain epilogue path, TF32
@@ -2172,8 +2178,8 @@ def infer_rates(torch, np, ge, tt, ts, card):
         save_checkpoint
     from handwriting_line_generation_tpu_torch.utils.png import \
         write_png_gray
-    model = ts.paper_model(DEVICE)
-    split = _Fixed(_eval_batches(np, tt))
+    model = paper_model(DEVICE)
+    split = _Fixed(_eval_batches(np, prof))
     lines = EVAL_BATCHES * EVAL_B_MAIN
     ev = Evaluator(model, IAM_CHARSET, device=DEVICE)
     work = tempfile.TemporaryDirectory()
@@ -2200,7 +2206,7 @@ def infer_rates(torch, np, ge, tt, ts, card):
             rates = {f: [lines / s for s in secs[(f, c)]] for f in (True,
                                                                     False)}
             print(f"Evaluator.run, {lines} lines (B={EVAL_B_MAIN}, 64x"
-                  f"{tt.W}, f32, TF32 {'on' if tf32 else 'off'}), "
+                  f"{prof.W}, f32, TF32 {'on' if tf32 else 'off'}), "
                   f"{'every channel' if c else 'no channel'}: evaluated "
                   f"lines/s through the kernel "
                   + ", ".join(f"{v:.1f}" for v in rates[True])
@@ -2241,7 +2247,7 @@ def infer_rates(torch, np, ge, tt, ts, card):
     bank = StyleExtractor(model, device=DEVICE).extract_dataset(split)
     bank_path = str(ckpt / "bank.npz")
     save_styles(bank_path, bank)
-    argv = ["-c", str(ts.CONFIG), "-k", str(ckpt), "-s", bank_path, "-m",
+    argv = ["-c", str(STYLE_CONFIG), "-k", str(ckpt), "-s", bank_path, "-m",
             "render", "-n", str(GEN_CLI_LINES), "-o", str(ckpt / "out"),
             "--device", DEVICE, "--override",
             "model.generator.fused_epilogue=true", "--override",
@@ -2268,7 +2274,7 @@ def infer_rates(torch, np, ge, tt, ts, card):
     torch.cuda.empty_cache()
 
 
-def infer_phase(torch, np, ge, tt, ts, card, root):
+def infer_phase(torch, np, ge, prof, card, root):
     """Phase 15.  Returns the kernels-line entry of the evaluation path's
     epilogue (B = ``EVAL_B_MAIN``, T = ``EVAL_T[-1]``; its error the
     largest of every (B, T))."""
@@ -2282,11 +2288,11 @@ def infer_phase(torch, np, ge, tt, ts, card, root):
     for t in EVAL_T:
         for b in EVAL_B:
             rows[(b, t)] = epilogue_row(
-                torch, ge, tt, f"gen_epilogue (evaluation, B={b} T={t} "
+                torch, ge, prof, f"gen_epilogue (evaluation, B={b} T={t} "
                 "float32)", epilogue_calls(t=t), b, torch.float32, launches,
                 card)
             err = max(err, rows[(b, t)]["max_abs_err"])
-    infer_rates(torch, np, ge, tt, ts, card)
+    infer_rates(torch, np, ge, prof, card)
     return dict(rows[(EVAL_B_MAIN, EVAL_T[-1])], max_abs_err=err)
 
 
@@ -2622,7 +2628,7 @@ def dist_bucket_rates(torch, card, work):
     return res
 
 
-def dist_phase(torch, tt, F, ctc, card, root, cli_root):
+def dist_phase(torch, prof, F, ctc, card, root, cli_root):
     """Phase 16: (a) ``iam_hwr`` for 10 steps (profiled) and
     ``iam_gan_paper`` for 14 lessons on two gloo ranks on this card through
     torchrun, against one process on the concatenated batches, rank 0 the
@@ -2822,7 +2828,7 @@ def dist_phase(torch, tt, F, ctc, card, root, cli_root):
             ("iam_hwr", (2, 112, 24), launches_hwr),
             ("iam_gan_paper genRecog", (2, 500, 96), launches_gan)):
         err = check_ctc(torch, ctc, t, lab, seed=t + lab, batch=b)
-        times = time_ctc(torch, tt, F, ctc, t, lab, card, batch=b)
+        times = time_ctc(torch, prof, F, ctc, t, lab, card, batch=b)
         rows += [(f"distributed {path}, rank {r} of 2", (b, t, lab), n, err,
                   times) for r, n in enumerate(launches)]
     print(f"phase 16: {time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -2874,7 +2880,7 @@ def _stage_launches(save_dir, name):
             if l.startswith("kernel launches: ctc ")]
 
 
-def pipeline_phase(torch, tt, F, ctc, card):
+def pipeline_phase(torch, prof, F, ctc, card):
     """Phase 17.  Returns the kernels-line rows of the pipeline's CTC
     paths."""
     from handwriting_line_generation_tpu_torch.utils.checkpoint import \
@@ -2890,7 +2896,7 @@ def pipeline_phase(torch, tt, F, ctc, card):
     for name, (b, t, lab), launches in rows:
         err = check_ctc(torch, ctc, t, lab, seed=t + lab, batch=b)
         out.append((f"pipeline {name}", (b, t, lab), launches, err,
-                    time_ctc(torch, tt, F, ctc, t, lab, card, batch=b)))
+                    time_ctc(torch, prof, F, ctc, t, lab, card, batch=b)))
     print(f"phase 17: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return out
 
@@ -3010,7 +3016,7 @@ def small_epilogue_calls(dim=256, t=192):
     return calls
 
 
-def epilogue_row(torch, ge, tt, name, calls, b, dtype, launches, card,
+def epilogue_row(torch, ge, prof, name, calls, b, dtype, launches, card,
                  max_err=0.0):
     """The kernel against its plain version at each call of a forward
     (batch ``b``, a conv bias), their CUDA-event times, byte bounds and
@@ -3026,9 +3032,9 @@ def epilogue_row(torch, ge, tt, name, calls, b, dtype, launches, card,
         err = max(err, check_epilogue(
             torch, ge, args, blur, dname,
             f"{name}: block {blk} B={b} C={c} H={h} W={w}", bias=bias))
-        t_k = tt.event_ms(lambda: ge.block_epilogue(
+        t_k = prof.event_ms(lambda: ge.block_epilogue(
             *args, apply_blur=blur, bias=bias), iters=20)
-        t_p = tt.event_ms(lambda: ge.block_epilogue_reference(
+        t_p = prof.event_ms(lambda: ge.block_epilogue_reference(
             *args, apply_blur=blur, bias=bias), iters=3, warmup=1)
         plan = ge.plan(args[0].shape, dtype, blur)
         n = b * h * w
@@ -3060,7 +3066,7 @@ def epilogue_row(torch, ge, tt, name, calls, b, dtype, launches, card,
             "library_ms": None}
 
 
-def jax_checkpoint_step(torch, np, ge, tt, card):
+def jax_checkpoint_step(torch, np, ge, prof, card):
     """18.1: the committed JAX fixture (``model_best.msgpack``, written by
     the JAX package) through ``load_model``, rendered through the epilogue
     kernel on the fixture's spaced text, styles and noise, against the JAX
@@ -3105,35 +3111,24 @@ def jax_checkpoint_step(torch, np, ge, tt, card):
         raise AssertionError("the JAX checkpoint's render disagrees with "
                              "the JAX package's, or missed the kernel")
     B, T = z["spaced"].shape
-    return epilogue_row(torch, ge, tt, f"gen_epilogue (JAX checkpoint "
+    return epilogue_row(torch, ge, prof, f"gen_epilogue (JAX checkpoint "
                         f"render, B={B} T={T} float32)",
                         epilogue_calls(cfg.model.generator.dim, T), B,
                         torch.float32, launches, card)
 
 
-def _kernel_split(torch, fn, steps):
+def _kernel_split(prof, fn, steps):
     """Device ms a call of ``fn`` by group (conv: cuDNN convolutions;
     LSTM: cuDNN's recurrent kernels; matmul: the other GEMMs, the LSTMs'
     input projections and the dense layers; CTC; other), the idle share
     1 - busy / wall, and the five longest "other" kernels, over ``steps``
     profiled calls (CUDA activity only)."""
-    from torch.profiler import ProfilerActivity, profile
-    from handwriting_line_generation_tpu_torch.trace_forward import \
-        _device_us
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / steps
+    win = prof.profiled_window(fn, steps)
     split = {"conv": 0.0, "LSTM": 0.0, "matmul": 0.0, "CTC": 0.0,
              "other": 0.0}
     other = []
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        low, ms = evt.key.lower(), _device_us(evt) / 1e3 / steps
+    for key, ms in win["kernels_ms"].items():
+        low = key.lower()
         if "ctc_kernel" in low:
             split["CTC"] += ms
         elif "rnn" in low or "lstm" in low:
@@ -3145,11 +3140,11 @@ def _kernel_split(torch, fn, steps):
             split["matmul"] += ms
         else:
             split["other"] += ms
-            other.append((ms, evt.key[:60]))
-    busy = sum(split.values())
-    if busy <= 0.0:
+            other.append((ms, key[:60]))
+    if win["busy_ms"] <= 0.0:
         raise AssertionError("the profile holds no device time")
-    return split, wall, 1.0 - busy / wall, sorted(other, reverse=True)[:5]
+    return split, win["wall_ms"], win["idle_share"], \
+        sorted(other, reverse=True)[:5]
 
 
 def _hwr_config(load_config, kind):
@@ -3158,16 +3153,17 @@ def _hwr_config(load_config, kind):
     return cfg
 
 
-def crnn_step(torch, tt, F, ctc, HWRTrainer, load_config, card):
+def crnn_step(torch, prof, F, ctc, HWRTrainer, load_config, card):
     """18.2: the CRNN at full width (hidden 512, 64 x 1024, B = 16, Adam
     1e-3, f32, TF32 off): 30 steps and an eval step through the CTC kernel,
     the loss falling; a step's gradients through the kernel against the
     plain CTC; the step's time and split; then SmallCRNN steps at H = 24.
     Returns the CTC rows of both paths."""
+    from handwriting_line_generation_tpu_torch import trace_train as tt
     cfg = _hwr_config(load_config, "crnn")
     tr = HWRTrainer(cfg, device=DEVICE)
     tr.init_state(seed=0)
-    batch = tt.batch(seed=0, device=DEVICE)
+    batch = prof.glyph_batch(tt.B, device=DEVICE)
     ctc.ctc_loss_cuda.launches = 0
     losses = [tr.train_step(*batch)[0] for _ in range(CRNN_STEPS)]
     eval_loss, logp = tr.eval_step(*batch)
@@ -3180,7 +3176,7 @@ def crnn_step(torch, tt, F, ctc, HWRTrainer, load_config, card):
           flush=True)
     if not all(math.isfinite(v) for v in losses) or not last < first \
             or launches != CRNN_STEPS + 1 \
-            or tuple(logp.shape) != (tt.B, tt.W // 4, CTC_CLASSES):
+            or tuple(logp.shape) != (tt.B, prof.W // 4, CTC_CLASSES):
         raise AssertionError("the CRNN did not train through the kernel")
     # one step's gradients, kernel against plain CTC, augmentation off
     cfg.data.augmentation = None
@@ -3202,10 +3198,10 @@ def crnn_step(torch, tt, F, ctc, HWRTrainer, load_config, card):
         raise AssertionError("the CRNN step through the kernel disagrees "
                              "with the plain CTC")
     del ref, g_k, g_p, lp
-    step_ms = time_train(tt, tr, batch)
+    step_ms = time_train(prof, tr, batch)
     split, wall, idle, other = _kernel_split(
-        torch, lambda: tr.train_step(*batch), 3)
-    print(f"CRNN train step (B={tt.B}, 64x{tt.W}, f32, TF32 off): "
+        prof, lambda: tr.train_step(*batch), 3)
+    print(f"CRNN train step (B={tt.B}, 64x{prof.W}, f32, TF32 off): "
           f"{step_ms:.3f} ms, {tt.B * 1000.0 / step_ms:.1f} trained lines/s;"
           f" profiled wall {wall:.3f} ms a step, device ms "
           + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
@@ -3213,9 +3209,9 @@ def crnn_step(torch, tt, F, ctc, HWRTrainer, load_config, card):
           f"{split['LSTM'] / sum(split.values()):.3f}; longest other "
           f"kernels (ms) {[(round(m, 3), k) for m, k in other]} {card}",
           flush=True)
-    err = check_ctc(torch, ctc, tt.W // 4, tt.L, seed=181)
-    times = time_ctc(torch, tt, F, ctc, tt.W // 4, tt.L, card)
-    rows = [("CRNN training", (tt.B, tt.W // 4, tt.L), launches, err,
+    err = check_ctc(torch, ctc, prof.W // 4, prof.L, seed=181)
+    times = time_ctc(torch, prof, F, ctc, prof.W // 4, prof.L, card)
+    rows = [("CRNN training", (tt.B, prof.W // 4, prof.L), launches, err,
              times)]
     del tr
 
@@ -3239,16 +3235,16 @@ def crnn_step(torch, tt, F, ctc, HWRTrainer, load_config, card):
     if not all(math.isfinite(v) for v in losses) or not losses[0] > 0 \
             or s_launches != SMALL_CRNN_STEPS:
         raise AssertionError("SmallCRNN did not step through the kernel")
-    err = check_ctc(torch, ctc, T, tt.L, seed=182)
-    rows.append(("SmallCRNN training", (tt.B, T, tt.L), s_launches, err,
-                 time_ctc(torch, tt, F, ctc, T, tt.L, card)))
+    err = check_ctc(torch, ctc, T, prof.L, seed=182)
+    rows.append(("SmallCRNN training", (tt.B, T, prof.L), s_launches, err,
+                 time_ctc(torch, prof, F, ctc, T, prof.L, card)))
     return rows
 
 
 def _session(torch, cfg, n, seed=0):
     """A bf16 generation session of ``cfg`` (seeded weights, conv biases)
-    and ``n`` copies of ``bench.TEXT`` with seeded styles."""
-    from handwriting_line_generation_tpu_torch import bench
+    and ``n`` copies of ``trace_gen.TEXT`` with seeded styles."""
+    from handwriting_line_generation_tpu_torch import trace_gen
     from handwriting_line_generation_tpu_torch.charset import IAM_CHARSET
     from handwriting_line_generation_tpu_torch.inference.generate import (
         GenerationSession, cast_params_bf16,
@@ -3261,42 +3257,43 @@ def _session(torch, cfg, n, seed=0):
     if cfg.compute_dtype == "bfloat16":
         cast_params_bf16(model)
     session = GenerationSession(model, IAM_CHARSET, device=DEVICE)
-    labels, lens = session.encode_texts([bench.TEXT] * n)
-    styles = torch.randn((n, bench.STYLE_DIM), device=DEVICE,
+    labels, lens = session.encode_texts([trace_gen.TEXT] * n)
+    styles = torch.randn((n, trace_gen.STYLE_DIM), device=DEVICE,
                          generator=torch.Generator(DEVICE).manual_seed(7))
     return session, labels, lens, styles
 
 
 def _render(torch, ge, session, labels, lens, styles, fused):
-    from handwriting_line_generation_tpu_torch import bench
+    from handwriting_line_generation_tpu_torch.trace_gen import SPACED_LEN
     session.model.generator.fused_epilogue = fused
     ge.block_epilogue.launches = 0
-    img, _ = session.forward(labels, lens, styles,
-                             spaced_len=bench.SPACED_LEN, seed=0)
+    img, _ = session.forward(labels, lens, styles, spaced_len=SPACED_LEN,
+                             seed=0)
     torch.cuda.synchronize()
     return img, ge.block_epilogue.launches
 
 
-def gan32_step(torch, np, tt, F, ctc, ge, load_config, card):
+def gan32_step(torch, np, prof, F, ctc, ge, load_config, card):
     """18.3: the 32-px family at the paper's widths: a 512-line bf16
     render through the epilogue kernel (9 launches, 32 rows, 2T columns),
     against the plain path, each call against its plain version; then the
     GAN's paper cycle on the 32-px config at B = 4 through the CTC kernel.
     Returns (the epilogue entry, the CTC row)."""
-    from handwriting_line_generation_tpu_torch import bench
     from handwriting_line_generation_tpu_torch import trace_gan as tg
+    from handwriting_line_generation_tpu_torch import trace_gen
     from handwriting_line_generation_tpu_torch.config import apply_overrides
     from handwriting_line_generation_tpu_torch.training.gan_trainer import \
         GanTrainer
-    cfg = bench.paper_config()
+    cfg = trace_gen.paper_config()
     cfg.generator.small = True
     session, labels, lens, styles = _session(torch, cfg, MAIN_BATCH)
     img, launches = _render(torch, ge, session, labels, lens, styles, True)
     plain, _ = _render(torch, ge, session, labels, lens, styles, False)
     session.model.generator.fused_epilogue = True
-    want = (MAIN_BATCH, 32, 2 * bench.SPACED_LEN, 1)
+    want = (MAIN_BATCH, 32, 2 * trace_gen.SPACED_LEN, 1)
     mad = (img - plain).abs().mean().item()
-    ms = bench.time_forward(session, labels, lens, styles, iters=10)
+    ms = prof.event_ms(lambda: session.forward(
+        labels, lens, styles, spaced_len=trace_gen.SPACED_LEN), warmup=2)
     print(f"32-px generator (small, dim 256, bf16): render "
           f"{tuple(img.shape)}, {launches} epilogue launches; kernel vs "
           f"plain path mean abs {mad:.3e} (bound {BF16_MEAN_ABS_BOUND}); "
@@ -3307,9 +3304,9 @@ def gan32_step(torch, np, tt, F, ctc, ge, load_config, card):
             BF16_MEAN_ABS_BOUND:
         raise AssertionError("the 32-px render failed its checks")
     del session, img, plain
-    row = epilogue_row(torch, ge, tt, f"gen_epilogue (32-px generator, "
+    row = epilogue_row(torch, ge, prof, f"gen_epilogue (32-px generator, "
                        f"B={MAIN_BATCH} bf16)",
-                       small_epilogue_calls(t=bench.SPACED_LEN),
+                       small_epilogue_calls(t=trace_gen.SPACED_LEN),
                        MAIN_BATCH, torch.bfloat16, launches, card)
 
     # the GAN's paper cycle on the 32-px config, f32, TF32 off
@@ -3343,7 +3340,7 @@ def gan32_step(torch, np, tt, F, ctc, ge, load_config, card):
     gen_t = min(gcfg.model.max_gen_length, 6 * max(gcfg.data.label_buckets))
     L = max(gcfg.data.label_buckets)
     err = check_ctc(torch, ctc, gen_t, L, seed=183, batch=tg.B)
-    times = time_ctc(torch, tt, F, ctc, gen_t, L, card, batch=tg.B)
+    times = time_ctc(torch, prof, F, ctc, gen_t, L, card, batch=tg.B)
     return row, ("32-px GAN genRecog", (tg.B, gen_t, L), g_launches, err,
                  times)
 
@@ -3355,21 +3352,22 @@ def _set_phase(model, on: bool) -> None:
         blk.phase_upsample = on
 
 
-def phase_upsample_step(torch, tt, ge, card):
+def phase_upsample_step(torch, prof, ge, card):
     """18.4: ``phase_upsample`` at the paper's width: a 512-line bf16 render
     through the epilogue kernel (9 launches), timed in turns against the
     sequential generator on the same weights, and a float32 forward (B =
     4) equal to the sequential one within ``F32_MAX_ABS_BOUND``.  Returns
     the epilogue entry."""
-    from handwriting_line_generation_tpu_torch import bench
-    cfg = bench.paper_config()
+    from handwriting_line_generation_tpu_torch import trace_gen
+    cfg = trace_gen.paper_config()
     cfg.generator.phase_upsample = True
     session, labels, lens, styles = _session(torch, cfg, MAIN_BATCH)
     _, launches = _render(torch, ge, session, labels, lens, styles, True)
     rates = {False: [], True: []}
     for phase in (False, True, True, False):
         _set_phase(session.model, phase)
-        ms = bench.time_forward(session, labels, lens, styles, iters=10)
+        ms = prof.event_ms(lambda: session.forward(
+            labels, lens, styles, spaced_len=trace_gen.SPACED_LEN), warmup=2)
         rates[phase].append(round(MAIN_BATCH * 1000.0 / ms, 1))
     del session
     cfg.compute_dtype = "float32"
@@ -3388,30 +3386,30 @@ def phase_upsample_step(torch, tt, ge, card):
     if launches != 9 or not e32 <= F32_MAX_ABS_BOUND:
         raise AssertionError("phase_upsample disagrees with the sequential "
                              "generator or missed the kernel")
-    return epilogue_row(torch, ge, tt, f"gen_epilogue (phase_upsample, "
+    return epilogue_row(torch, ge, prof, f"gen_epilogue (phase_upsample, "
                         f"B={MAIN_BATCH} bf16)",
-                        epilogue_calls(t=bench.SPACED_LEN), MAIN_BATCH,
+                        epilogue_calls(t=trace_gen.SPACED_LEN), MAIN_BATCH,
                         torch.bfloat16, launches, card)
 
 
-def normalization_step(torch, tt, card):
+def normalization_step(torch, prof, card):
     """18.5: the "normalization" augmentation on a 64 x 1024 batch: the
     card against the CPU (the skeleton's pixels equal, the image within
     ``NORM_ATOL``), and its time on each."""
     from handwriting_line_generation_tpu_torch.ops.augment import (
         apply_augmentation, dequantize_image,
     )
-    image, _, _, width = tt.batch(seed=5, device=DEVICE, n=NORM_LINES)
+    image, _, _, width = prof.glyph_batch(NORM_LINES, 5, DEVICE)
     x = dequantize_image(image, width)
     run = lambda t: apply_augmentation("normalization", t, None, None)[0]
     gpu = run(x)
     t0 = time.perf_counter()
     cpu = run(x.cpu())
     cpu_ms = (time.perf_counter() - t0) * 1e3
-    gpu_ms = tt.event_ms(lambda: run(x), iters=3, warmup=1)
+    gpu_ms = prof.event_ms(lambda: run(x), iters=3, warmup=1)
     err = (gpu.cpu() - cpu).abs().max().item()
     same = float(((gpu.cpu() > -1.0) == (cpu > -1.0)).float().mean())
-    print(f"normalization augmentation ({NORM_LINES} x 64 x {tt.W}): card "
+    print(f"normalization augmentation ({NORM_LINES} x 64 x {prof.W}): card "
           f"{gpu_ms:.2f} ms, CPU {cpu_ms:.1f} ms; card vs CPU max abs "
           f"{err:.3e} (bound {NORM_ATOL}), stroke pixels agreeing "
           f"{same:.6f} {card}", flush=True)
@@ -3420,19 +3418,19 @@ def normalization_step(torch, tt, card):
                              "the CPU")
 
 
-def variants_phase(torch, np, tt, F, ctc, ge, HWRTrainer, load_config,
+def variants_phase(torch, np, prof, F, ctc, ge, HWRTrainer, load_config,
                    card):
     """Phase 18; returns (epilogue entries, CTC rows)."""
     t_phase = time.perf_counter()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    epi = [jax_checkpoint_step(torch, np, ge, tt, card)]
-    ctc_rows = crnn_step(torch, tt, F, ctc, HWRTrainer, load_config, card)
-    row, gan_row = gan32_step(torch, np, tt, F, ctc, ge, load_config, card)
+    epi = [jax_checkpoint_step(torch, np, ge, prof, card)]
+    ctc_rows = crnn_step(torch, prof, F, ctc, HWRTrainer, load_config, card)
+    row, gan_row = gan32_step(torch, np, prof, F, ctc, ge, load_config, card)
     epi.append(row)
     ctc_rows.append(gan_row)
-    epi.append(phase_upsample_step(torch, tt, ge, card))
-    normalization_step(torch, tt, card)
+    epi.append(phase_upsample_step(torch, prof, ge, card))
+    normalization_step(torch, prof, card)
     torch.cuda.empty_cache()
     print(f"phase 18: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return epi, ctc_rows
@@ -3550,7 +3548,7 @@ def check_curves(np, path, log_path):
     return len(curves), int(clear.sum())
 
 
-def plots_phase(torch, np, ge, tt, ts, card, gan_log):
+def plots_phase(torch, np, ge, prof, card, gan_log):
     """Phase 19.  Returns the kernels-line entry of the thumbnails'
     epilogue."""
     from handwriting_line_generation_tpu_torch import (
@@ -3575,10 +3573,10 @@ def plots_phase(torch, np, ge, tt, ts, card, gan_log):
     secs = {}
 
     # the bank and its thumbnails through the epilogue kernel
-    model = ts.paper_model(DEVICE)
+    model = paper_model(DEVICE)
     t0 = time.perf_counter()
     bank = StyleExtractor(model, device=DEVICE).extract_dataset(
-        _Fixed(_eval_batches(np, tt)))
+        _Fixed(_eval_batches(np, prof)))
     secs["style bank"] = time.perf_counter() - t0
     bank_path = str(root / "bank.npz")
     save_styles(bank_path, bank)
@@ -3599,7 +3597,7 @@ def plots_phase(torch, np, ge, tt, ts, card, gan_log):
     for sid, im in zip(map(str, bank["ids"]), imgs):
         thumbs[sid] = to_uint8(im)
         write_png_gray(str(root / "thumbs" / f"{sid}.png"), thumbs[sid])
-    row = epilogue_row(torch, ge, tt, f"gen_epilogue (thumbnails, B={n} "
+    row = epilogue_row(torch, ge, prof, f"gen_epilogue (thumbnails, B={n} "
                        f"T={THUMB_T} float32)", epilogue_calls(t=THUMB_T),
                        n, torch.float32, launches, card)
     del model, session
@@ -3730,7 +3728,7 @@ def _band_check(runs, step):
     return worst
 
 
-def bf16_continuation(torch, np, ge, ctc, tt, card, cli_root, work):
+def bf16_continuation(torch, np, ge, ctc, prof, card, cli_root, work):
     """Phase 20 (d): phase 14's float32 ``iam_gan_paper`` run resumed by
     the train CLI with ``-r -a model.compute_dtype=bfloat16`` for
     ``BF16_CONT_LESSONS`` lessons, and from a copy of the same checkpoint
@@ -3814,23 +3812,24 @@ def bf16_continuation(torch, np, ge, ctc, tt, card, cli_root, work):
         raise AssertionError("the bf16 checkpoint's render through the "
                              "epilogue kernel")
     T = img.shape[2] // 4
-    row = epilogue_row(torch, ge, tt, f"gen_epilogue (bf16 continuation's "
+    row = epilogue_row(torch, ge, prof, f"gen_epilogue (bf16 continuation's "
                        f"render, B={BF16_RENDER_LINES} T={T} bfloat16)",
                        epilogue_calls(t=T), BF16_RENDER_LINES,
                        torch.bfloat16, n, card)
     return launches["bfloat16"], row
 
 
-def bf16_phase(torch, np, tt, F, ctc, ge, HWRTrainer, load_config, card,
+def bf16_phase(torch, np, prof, F, ctc, ge, HWRTrainer, load_config, card,
                hwr_ckpt, auto_ckpt, cli_root):
     """Phase 20.  Returns (the CTC launches of each bf16 path, the
     kernels-line entry of the render's epilogue)."""
     from handwriting_line_generation_tpu_torch import trace_auto as ta
     from handwriting_line_generation_tpu_torch import trace_gan as tg
+    from handwriting_line_generation_tpu_torch import trace_train as tt
     t0 = time.perf_counter()
-    tt.set_tf32(False)
+    prof.set_tf32(False)
     # (a) the recognizer
-    hwr_n, tr, batch = train_main_path(torch, tt, ctc, HWRTrainer,
+    hwr_n, tr, batch = train_main_path(torch, prof, ctc, HWRTrainer,
                                        load_config, dtype="bfloat16")
     check_train_grads(torch, ctc, HWRTrainer, load_config, batch,
                       dtype="bfloat16")
@@ -3865,10 +3864,10 @@ def bf16_phase(torch, np, tt, F, ctc, ge, HWRTrainer, load_config, card,
     torch.cuda.empty_cache()
     # (d) phase 14's float32 run continued in bf16
     with tempfile.TemporaryDirectory() as d:
-        cont_n, render_row = bf16_continuation(torch, np, ge, ctc, tt, card,
+        cont_n, render_row = bf16_continuation(torch, np, ge, ctc, prof, card,
                                                cli_root, pathlib.Path(d))
     # (e) times by precision
-    tt.precision_ms(tt.batch(seed=0, device=DEVICE), card)
+    tt.precision_ms(prof.glyph_batch(tt.B, device=DEVICE), card)
     ta.precision_ms(auto_data, card)
     tg.precision_ms(batches, card, pretrained_hwr=hwr_ckpt,
                     encoder_weights=auto_ckpt)
@@ -3908,7 +3907,7 @@ def _gen_flops(torch, flops, session, label, n, spaced_len):
     return fl
 
 
-def mfu_report_step(torch, np, tt, F, ctc, ge, card):
+def mfu_report_step(torch, np, prof, F, ctc, ge, card):
     """21.1: ``mfu_report`` on the GAN cell through both kernels; its FLOP
     counts held against the CPU's at the same config and shapes.  Returns
     the report and its kernels-line rows."""
@@ -3917,7 +3916,7 @@ def mfu_report_step(torch, np, tt, F, ctc, ge, card):
     from handwriting_line_generation_tpu_torch.inference.generate import \
         GenerationSession
     from handwriting_line_generation_tpu_torch.scripts import mfu_report as mr
-    tt.set_tf32(False)
+    prof.set_tf32(False)
     ctc.ctc_loss_cuda.launches = 0
     ge.block_epilogue.launches = 0
     rep = mr.report(str(MFU_CONFIG), MFU_OVERRIDES, iters=MFU_ITERS,
@@ -3975,24 +3974,25 @@ def mfu_report_step(torch, np, tt, F, ctc, ge, card):
              "replaces": "handwriting_line_generation_tpu/ops/"
                          "ctc_pallas.py:60",
              "launches": n_ctc, "max_abs_err": err,
-             **{k: v for k, v in time_ctc(torch, tt, F, ctc, T, L, card,
+             **{k: v for k, v in time_ctc(torch, prof, F, ctc, T, L, card,
                                           batch=B).items()
                 if k in ("ms", "plain_ms", "bound_ms", "bound_by",
                          "library_ms")}},
-            epilogue_row(torch, ge, tt, f"gen_epilogue (mfu_report "
+            epilogue_row(torch, ge, prof, f"gen_epilogue (mfu_report "
                          f"generation, B={MAIN_BATCH} T={rep['gen_spaced_len']}"
                          f" bf16)", epilogue_calls(t=rep["gen_spaced_len"]),
                          MAIN_BATCH, torch.bfloat16, n_epi, card)]
     return rep, rows
 
 
-def trace_gen_step(torch, tt, ge, card):
+def trace_gen_step(torch, prof, ge, card):
     """21.2: ``trace_gen``'s per-block split, variant A/B and attribution
     on the bench session, each block's and arm's epilogue launches
     counted, the A/B renders held against the baseline's.  Returns the
     three tables and the kernels-line row."""
-    from handwriting_line_generation_tpu_torch import bench, trace_gen
-    session, labels, lens, styles = bench.build(MAIN_BATCH, device=DEVICE)
+    from handwriting_line_generation_tpu_torch import trace_gen
+    session, labels, lens, styles = trace_gen.build(MAIN_BATCH,
+                                                    device=DEVICE)
     ge.block_epilogue.launches = 0
     out = {}
     for what, fn in (("blocks", trace_gen.blocks), ("ab", trace_gen.ab),
@@ -4020,17 +4020,17 @@ def trace_gen_step(torch, tt, ge, card):
                              "variant's render disagrees")
     del session
     torch.cuda.empty_cache()
-    row = epilogue_row(torch, ge, tt, f"gen_epilogue (trace_gen blocks, A/B "
+    row = epilogue_row(torch, ge, prof, f"gen_epilogue (trace_gen blocks, A/B "
                        f"and attribution, B={MAIN_BATCH} bf16)",
-                       epilogue_calls(t=bench.SPACED_LEN), MAIN_BATCH,
+                       epilogue_calls(t=trace_gen.SPACED_LEN), MAIN_BATCH,
                        torch.bfloat16, launches, card)
     return out, row
 
 
-def mfu_phase(torch, np, tt, F, ctc, ge, card):
+def mfu_phase(torch, np, prof, F, ctc, ge, card):
     """Phase 21.  Returns its kernels-line rows."""
     t0 = time.perf_counter()
-    rep, rows = mfu_report_step(torch, np, tt, F, ctc, ge, card)
+    rep, rows = mfu_report_step(torch, np, prof, F, ctc, ge, card)
     print(f"phase 21 MFU (datasheet peaks, {rep['peak_precision']} "
           f"{rep['peak_tflops']} TFLOP/s, bf16 {rep['gen_peak_tflops']}): "
           f"auto lesson {rep['auto_step_gflops']:.1f} GFLOP in "
@@ -4043,7 +4043,7 @@ def mfu_phase(torch, np, tt, F, ctc, ge, card):
           f"{rep['gen_lines_per_sec']:.1f} lines/s, "
           f"{rep['gen_achieved_tflops']:.3f} TFLOP/s, MFU "
           f"{rep['gen_mfu']:.4f} {card}", flush=True)
-    _, row = trace_gen_step(torch, tt, ge, card)
+    _, row = trace_gen_step(torch, prof, ge, card)
     print(f"phase 21: {time.perf_counter() - t0:.1f} s", flush=True)
     return rows + [row]
 
@@ -4056,14 +4056,15 @@ def main():
         return 1
     import numpy as np
     import torch.nn.functional as F
-    from handwriting_line_generation_tpu_torch import bench, kernels
+    from handwriting_line_generation_tpu_torch import kernels
+    from handwriting_line_generation_tpu_torch import profiling as prof
+    from handwriting_line_generation_tpu_torch import trace_gen
     from handwriting_line_generation_tpu_torch import trace_train as tt
     from handwriting_line_generation_tpu_torch.config import load_config
     from handwriting_line_generation_tpu_torch.inference.generate import (
         GenerationSession,
     )
     from handwriting_line_generation_tpu_torch import trace_auto as ta
-    from handwriting_line_generation_tpu_torch import trace_style as ts
     from handwriting_line_generation_tpu_torch.init import (
         init_model, seed_conv_biases,
     )
@@ -4110,27 +4111,27 @@ def main():
                     f"B={CHECK_BATCH} C={c} H={h} W={w}", bias=b))
 
     # 4. main path: paper width, bf16, fused epilogue, 512 lines
-    session, labels, lens, styles = bench.build(MAIN_BATCH)
+    session, labels, lens, styles = trace_gen.build(MAIN_BATCH)
     seed_conv_biases(session.model.generator, seed=1)
-    texts = [bench.TEXT] * MAIN_BATCH
+    texts = [trace_gen.TEXT] * MAIN_BATCH
     styles_np = styles.cpu().numpy()
     ge.block_epilogue.launches = 0
     img = session.render(texts, styles_np, seed=0,
-                         spaced_len=bench.SPACED_LEN)
+                         spaced_len=trace_gen.SPACED_LEN)
     launches = ge.block_epilogue.launches
     print(f"main path: render {img.shape}, gen_epilogue launches "
           f"{launches}", flush=True)
     if launches != 9:
         raise AssertionError(f"expected 9 gen_epilogue launches per forward, "
                              f"got {launches}")
-    if img.shape != (MAIN_BATCH, 64, 4 * bench.SPACED_LEN, 1):
+    if img.shape != (MAIN_BATCH, 64, 4 * trace_gen.SPACED_LEN, 1):
         raise AssertionError(f"bad output shape {img.shape}")
     if not np.isfinite(img).all() or np.abs(img).max() > 1.0:
         raise AssertionError("output not finite or outside [-1, 1]")
     # the same render through the plain sequential path, same noise draws
     session.model.generator.fused_epilogue = False
     plain = session.render(texts, styles_np, seed=0,
-                           spaced_len=bench.SPACED_LEN)
+                           spaced_len=trace_gen.SPACED_LEN)
     session.model.generator.fused_epilogue = True
     mad = float(np.abs(img - plain).mean())
     print(f"main path bf16, non-zero conv biases, kernel vs plain path: "
@@ -4138,7 +4139,7 @@ def main():
           f"(bound {BF16_MEAN_ABS_BOUND}), max {np.abs(img - plain).max():.3e}")
     if not mad <= BF16_MEAN_ABS_BOUND:
         raise AssertionError("bf16 render disagrees with the plain path")
-    cfg32 = bench.paper_config()
+    cfg32 = trace_gen.paper_config()
     cfg32.compute_dtype = "float32"
     s32 = GenerationSession(init_model(cfg32, seed=0), session.charset,
                             device=DEVICE)
@@ -4148,7 +4149,7 @@ def main():
     for fused in (True, False):
         s32.model.generator.fused_epilogue = fused
         out, _ = s32.forward(labels[few], lens[few], styles[few],
-                             spaced_len=bench.SPACED_LEN, seed=0)
+                             spaced_len=trace_gen.SPACED_LEN, seed=0)
         outs.append(out)
     e32 = (outs[0] - outs[1]).abs().max().item()
     print(f"f32 forward (B=4), non-zero conv biases, kernel vs plain path: "
@@ -4159,10 +4160,11 @@ def main():
     del s32, outs, plain
 
     # 5. timing
-    ms = bench.time_forward(session, labels, lens, styles, iters=10)
+    ms = prof.event_ms(lambda: session.forward(
+        labels, lens, styles, spaced_len=trace_gen.SPACED_LEN), warmup=2)
     print(f"forward {ms:.3f} ms per {MAIN_BATCH} lines: "
           f"{MAIN_BATCH * 1000.0 / ms:.1f} lines/s {card}", flush=True)
-    main_row = epilogue_row(torch, ge, tt, "gen_epilogue",
+    main_row = epilogue_row(torch, ge, prof, "gen_epilogue",
                             epilogue_calls(), MAIN_BATCH, torch.bfloat16,
                             launches, card, max_err)
 
@@ -4175,15 +4177,15 @@ def main():
     del session
     torch.cuda.empty_cache()
     ctc_launches, trainer, batch = train_main_path(
-        torch, tt, ctc, HWRTrainer, load_config)
+        torch, prof, ctc, HWRTrainer, load_config)
     check_train_grads(torch, ctc, HWRTrainer, load_config, batch)
 
     # 8. timing: training and the CTC kernel
     for tf32 in (False, True):
         torch.backends.cudnn.allow_tf32 = tf32
         torch.backends.cuda.matmul.allow_tf32 = tf32
-        step_ms = time_train(tt, trainer, batch)
-        print(f"train step (iam_hwr, B={tt.B}, 64x{tt.W}, "
+        step_ms = time_train(prof, trainer, batch)
+        print(f"train step (iam_hwr, B={tt.B}, 64x{prof.W}, "
               f"f32, TF32 {'on' if tf32 else 'off'}): {step_ms:.3f} ms, "
               f"{tt.B * 1000.0 / step_ms:.1f} trained lines/s {card}",
               flush=True)
@@ -4195,24 +4197,24 @@ def main():
     save_checkpoint(str(hwr_ckpt.parent), hwr_ckpt.name,
                     trainer.state_dict())
     del trainer
-    ctc_times = [time_ctc(torch, tt, F, ctc, T, L, card)
+    ctc_times = [time_ctc(torch, prof, F, ctc, T, L, card)
                  for T, L in CTC_BUCKETS]
     main_t = ctc_times[CTC_MAIN]
 
     # 9. main path: style extraction and autoencode on the paper model
-    viterbi_row = style_main_path(torch, np, ge, ts, card)
+    viterbi_row = style_main_path(torch, np, ge, prof, card)
 
     # 10. main path: autoencoder pretraining through the CTC kernel at
     # T = W/8 (leaves TF32 off)
     auto_dir = pathlib.Path(ckpts.name, "auto")
-    auto_launches, auto_err, auto_t = auto_phase(torch, tt, F, ctc, ta,
+    auto_launches, auto_err, auto_t = auto_phase(torch, prof, F, ctc, ta,
                                                  load_config, card,
                                                  str(auto_dir))
 
     # 11. main path: GAN training through the CTC kernel at its buckets
     auto_ckpt = auto_dir / load_config(str(AUTO_CONFIG)).name \
         / "checkpoint-latest"
-    gan_launches, gan_err, gan_t = gan_phase(torch, tt, F, ctc, card,
+    gan_launches, gan_err, gan_t = gan_phase(torch, prof, F, ctc, card,
                                              str(hwr_ckpt), str(auto_ckpt))
 
     # 12. main path: the GAN's training run (GanTrainer.train) through the
@@ -4225,10 +4227,11 @@ def main():
 
     # 13. one CUDA launch per epilogue call, seen by the profiler, on a small
     # paper-width session
-    small, s_labels, s_lens, s_styles = bench.build(CHECK_BATCH)
+    small, s_labels, s_lens, s_styles = trace_gen.build(CHECK_BATCH)
     cuda_launches = count_device_kernels(
         torch, "epilogue_kernel", lambda: small.forward(
-            s_labels, s_lens, s_styles, spaced_len=bench.SPACED_LEN, seed=0))
+            s_labels, s_lens, s_styles, spaced_len=trace_gen.SPACED_LEN,
+            seed=0))
     print(f"generation forward (B={CHECK_BATCH}): {cuda_launches} CUDA "
           f"kernel launches named epilogue_kernel (profiler)", flush=True)
     if cuda_launches != 9:
@@ -4238,19 +4241,19 @@ def main():
 
     # 14. training from a config: the port's train CLI over the mini-IAM
     # fixture and the synthetic corpus, each stage through the CTC kernel
-    cli_rows = cli_phase(torch, tt, F, ctc, card,
+    cli_rows = cli_phase(torch, prof, F, ctc, card,
                          pathlib.Path(ckpts.name, "cli"))
 
     # 15. inference from a checkpoint: the port's get_styles, generate and
     # evaluate CLIs on phase 14's GAN run through the epilogue kernel, the
     # kernel at the evaluation path's shapes, and the evaluation rates
-    infer = infer_phase(torch, np, ge, tt, ts, card,
+    infer = infer_phase(torch, np, ge, prof, card,
                         pathlib.Path(ckpts.name, "cli"))
 
     # 16. multi-process training on the one card: the train CLI under
     # torchrun (gloo ranks sharing it, a world of 1 on NCCL, --fsdp 2),
     # against one process, and the graft entry's dry run
-    dist_rows = dist_phase(torch, tt, F, ctc, card,
+    dist_rows = dist_phase(torch, prof, F, ctc, card,
                            pathlib.Path(ckpts.name, "dist"),
                            pathlib.Path(ckpts.name, "cli"))
     gan_log = pathlib.Path(ckpts.name, "cli", "iam_gan_paper",
@@ -4258,25 +4261,25 @@ def main():
 
     # 17. the synthetic pipeline: iam3 through the GAN and again (no step),
     # rimes3 through the spaced_loc cache, held against live alignment
-    pipe_rows = pipeline_phase(torch, tt, F, ctc, card)
+    pipe_rows = pipeline_phase(torch, prof, F, ctc, card)
 
     # 18. every model variant and the JAX checkpoints: the committed JAX
     # fixture rendered through the epilogue kernel, the CRNN and SmallCRNN
     # through the CTC kernel, the 32-px family, phase_upsample and the
     # normalization augmentation
-    var_epi, var_ctc = variants_phase(torch, np, tt, F, ctc, ge, HWRTrainer,
+    var_epi, var_ctc = variants_phase(torch, np, prof, F, ctc, ge, HWRTrainer,
                                       load_config, card)
 
     # 19. the plotting and dataset-dump CLIs: a style bank's thumbnails
     # through the epilogue kernel, the style map, phase 14's GAN curves,
     # the heatmap and the dataset dumps, with no matplotlib or OpenCV
-    plot_row = plots_phase(torch, np, ge, tt, ts, card, gan_log)
+    plot_row = plots_phase(torch, np, ge, prof, card, gan_log)
 
     # 20. bf16 mixed-precision training: the three trainers through the
     # CTC kernel, phase 14's GAN run continued in bf16 beside float32 and
     # its render through the epilogue kernel, the times by precision
     bf16_n, bf16_render = bf16_phase(
-        torch, np, tt, F, ctc, ge, HWRTrainer, load_config, card,
+        torch, np, prof, F, ctc, ge, HWRTrainer, load_config, card,
         str(hwr_ckpt), str(auto_ckpt), pathlib.Path(ckpts.name, "cli"))
     ckpts.cleanup()
 
@@ -4284,7 +4287,7 @@ def main():
     # GAN's auto lesson and of generation through both kernels, the counts
     # held against the CPU's; trace_gen's per-block split, variant A/B and
     # attribution through the epilogue kernel
-    mfu_rows = mfu_phase(torch, np, tt, F, ctc, ge, card)
+    mfu_rows = mfu_phase(torch, np, prof, F, ctc, ge, card)
 
     # 22. summary
     print(smi)

@@ -62,7 +62,7 @@ from handwriting_line_generation_tpu_torch.ops.augment import \
     quantize_image_u8
 from handwriting_line_generation_tpu_torch.ops.spacing import insert_spaces
 from handwriting_line_generation_tpu_torch.pipeline import card_name
-from handwriting_line_generation_tpu_torch.trace_gen import time_ms
+from handwriting_line_generation_tpu_torch.profiling import event_ms
 from handwriting_line_generation_tpu_torch.training.gan_trainer import \
     GanTrainer
 from handwriting_line_generation_tpu_torch.utils.checkpoint import \
@@ -129,14 +129,12 @@ def generation_report(session: GenerationSession, labels, lens, styles,
                       spaced_len: int, iters: int, peak: float) -> Dict:
     """One forward counted (FLOPs, unfused bytes, epilogue launches), then
     ``iters`` timed after two warm-ups."""
-    dev = str(session.device)
     fwd = lambda i=0: session.forward(labels, lens, styles,
                                       spaced_len=spaced_len, seed=i)
     n0 = gen_epilogue.block_epilogue.launches
     _, fl, by = flops.count(fwd)
     launches = gen_epilogue.block_epilogue.launches - n0
-    fwd()
-    ms = time_ms(fwd, iters, dev)
+    ms = event_ms(fwd, iters, warmup=1)
     B, s = labels.shape[0], ms / 1e3
     return {"gen_batch": B, "gen_spaced_len": spaced_len,
             "gen_step_gflops": fl / 1e9, "gen_sec_per_batch": s,
@@ -187,15 +185,12 @@ def report(config: str, overrides: Sequence[str] = (), iters: int = 30,
             i = 7 * len(done) + j
             tr.run_lesson(tr.curriculum.get_lesson(i), it, iteration=i)
         done.append(1)
-    cycle()
-    n_cycles = max(iters // 7, 1)
-    ms = time_ms(cycle, n_cycles, device)
+    ms = event_ms(cycle, max(iters // 7, 1), warmup=1)
     out["sec_per_lesson"] = ms / 7 / 1e3
     out["lessons_per_sec"] = 7e3 / ms
 
     # the auto lesson alone
-    tr.step_auto(*args)
-    s = time_ms(lambda: tr.step_auto(*args), iters, device) / 1e3
+    s = event_ms(lambda: tr.step_auto(*args), iters, warmup=1) / 1e3
     out["auto_sec_per_step"] = s
     out["auto_achieved_tflops"] = fl / s / 1e12
     out["auto_mfu"] = fl / s / (peak * 1e12)

@@ -6,23 +6,23 @@ discriminator 64 with the medium and low heads; the frozen ``2tight``
 perceptual encoder; Adam 2e-4, betas (0.5, 0.999); float32; seeded
 weights unless checkpoints are given) at its B = 2 authors x 2 lines = 4,
 on seeded u8 glyph lines of 64 x 1024 with labels at 72
-(``trace_train.batch``) for the image lessons and ``TextSampler`` labels at
+(``profiling.glyph_batch``) for the image lessons and ``TextSampler`` labels at
 96 (generated lines of 500 frames) for the text lessons, and prints:
 
 * ms per lesson kind (count, no-step gen, auto, disc) and per 7-lesson
-  cycle, CUDA-event medians, TF32 off and then on, and GAN-trained lines/s
+  cycle, by CUDA events, TF32 off and then on, and GAN-trained lines/s
   = 4 x 7 x 1000 / ms per cycle;
-* per layer, CUDA-event medians with TF32 off: style extraction,
+* per layer, by CUDA events with TF32 off: style extraction,
   ``viterbi_align``, the generator forward, the discriminator forward +
   backward, the perceptual encoder, the recognizer on a generated line
   (forward + backward to the image), the CTC kernel at (4, 500, 96), one
   per-group VJP through the autoencode graph, ``balance_and_merge`` and the
   main Adam step;
-* over one profiled cycle, TF32 off: wall time (host clock, ending in a
-  synchronize), device busy time, the idle share 1 - busy / wall, and
-  device time by kernel group;
-* ms per cycle in each precision (``trace_train.by_precision``): float32
-  with TF32 off, with TF32 on, and bf16, medians of 3 cycles after one.
+* over one profiled cycle, TF32 off (``profiling.profiled_window``): wall
+  time, device busy time, the idle share 1 - busy / wall, and device time
+  by kernel group and by kernel;
+* ms per cycle in each precision (``profiling.by_precision``): float32
+  with TF32 off, with TF32 on, and bf16, over 3 cycles after one.
 
     python -m handwriting_line_generation_tpu_torch.trace_gan
 
@@ -34,14 +34,11 @@ from __future__ import annotations
 import itertools
 import json
 import pathlib
-import time
-from collections import defaultdict
 from typing import Dict, List, Optional
 
 import torch
-from torch.profiler import ProfilerActivity, profile
 
-from handwriting_line_generation_tpu_torch import trace_train as tt
+from handwriting_line_generation_tpu_torch import profiling as prof
 from handwriting_line_generation_tpu_torch.charset import IAM_CHARSET
 from handwriting_line_generation_tpu_torch.config import load_config
 from handwriting_line_generation_tpu_torch.models.hw_with_style import \
@@ -50,9 +47,6 @@ from handwriting_line_generation_tpu_torch.ops import ctc
 from handwriting_line_generation_tpu_torch.ops.align import viterbi_align
 from handwriting_line_generation_tpu_torch.ops.augment import \
     dequantize_image
-from handwriting_line_generation_tpu_torch.trace_forward import _device_us
-from handwriting_line_generation_tpu_torch.trace_style import \
-    event_median_ms
 from handwriting_line_generation_tpu_torch.training.gan_trainer import (
     GanTrainer, _grads,
 )
@@ -87,9 +81,9 @@ def trainer(device, seed: int = 0, pretrained_hwr: Optional[str] = None,
 
 def batch(device, seed: int = 0) -> Dict:
     """A batch dict of ``B`` seeded u8 lines (2 author pairs) on the card:
-    ``trace_train.batch``'s glyph lines, their text, the ink as the fg
+    ``profiling.glyph_batch``'s lines, their text, the ink as the fg
     mask."""
-    image, label, lens, width = tt.batch(seed=seed, device=device, n=B)
+    image, label, lens, width = prof.glyph_batch(B, seed, device)
     lab, n = label.cpu().numpy(), lens.cpu().numpy()
     return dict(image=image, label=label, label_lengths=lens, width=width,
                 gt=[IAM_CHARSET.decode(lab[b, :n[b]]) for b in range(B)],
@@ -104,18 +98,18 @@ def cycle(tr: GanTrainer, batches, start: int = 0) -> List[Dict]:
 
 
 def lesson_times(tr: GanTrainer, batches) -> Dict[str, float]:
-    """Median ms of each lesson kind and of a whole cycle."""
+    """ms of each lesson kind and of a whole cycle."""
     lessons = {k: next(l for l in tr.curriculum.distinct_lessons() if k in l)
                for k in KINDS}
-    times = {k: event_median_ms(lambda l=l: tr.run_lesson(l, batches))
+    times = {k: prof.event_ms(lambda l=l: tr.run_lesson(l, batches))
              for k, l in lessons.items()}
-    times["cycle"] = event_median_ms(lambda: cycle(tr, batches), iters=5,
-                                     warmup=1)
+    times["cycle"] = prof.event_ms(lambda: cycle(tr, batches), iters=5,
+                                   warmup=1)
     return times
 
 
 def layer_times(tr: GanTrainer, data: Dict) -> Dict[str, float]:
-    """Per-layer CUDA-event medians (ms), TF32 as set."""
+    """Per-layer ms (CUDA events), TF32 as set."""
     m, s = tr.model, tr.state
     image = dequantize_image(data["image"], data["width"])
     label, lens = data["label"], data["label_lengths"]
@@ -128,18 +122,18 @@ def layer_times(tr: GanTrainer, data: Dict) -> Dict[str, float]:
     with torch.no_grad():
         style, pred = m.extract_style(image, A, frame_lengths=frames)
         times["style extraction (recognizer + style encoder)"] = \
-            event_median_ms(lambda: m.extract_style(image, A,
-                                                    frame_lengths=frames))
-        times["viterbi_align"] = event_median_ms(
+            prof.event_ms(lambda: m.extract_style(image, A,
+                                                  frame_lengths=frames))
+        times["viterbi_align"] = prof.event_ms(
             lambda: viterbi_align(pred, label, lens))
         spaced = viterbi_align(pred, label, lens)
         g = s.generator
-        times["generator forward (T = W/4)"] = event_median_ms(
+        times["generator forward (T = W/4)"] = prof.event_ms(
             lambda: m.generate_spaced(spaced, style, generator=g))
         gen_img, _ = m.generate(tlab, tlen, _flat_style(style), spaced_len=T,
                                 generator=g)
         recon = m.generate_spaced(spaced, style, generator=g)
-        times["perceptual encoder (2 applies)"] = event_median_ms(
+        times["perceptual encoder (2 applies)"] = prof.event_ms(
             lambda: tr._perceptual(image, recon))
     disc_params = [p for p, l in zip(s.params, s.labels) if l == "disc"]
 
@@ -147,7 +141,7 @@ def layer_times(tr: GanTrainer, data: Dict) -> Dict[str, float]:
         loss = disc_hinge_loss(m.discriminate(image), m.discriminate(recon))
         torch.autograd.grad(loss, disc_params)
     times["discriminator forward + backward (real + fake)"] = \
-        event_median_ms(disc_fwd_bwd)
+        prof.event_ms(disc_fwd_bwd)
     im = gen_img.detach().requires_grad_(True)
     gframes = torch.full((B,), T, device=tr.device)
 
@@ -155,48 +149,25 @@ def layer_times(tr: GanTrainer, data: Dict) -> Dict[str, float]:
         logp = ctc.mask_frames_to_blank(m.recognize(im), gframes)
         torch.autograd.grad(ctc.ctc_loss_fast(logp, tlab, tlen), im)
     times["recognizer on the generated line, fwd + bwd"] = \
-        event_median_ms(recog_fwd_bwd)
+        prof.event_ms(recog_fwd_bwd)
     lp = ctc.mask_frames_to_blank(m.recognize(im), gframes).detach()
     lab32, len32 = tlab.int().contiguous(), tlen.int().contiguous()
     times[f"ctc kernel fwd + bwd ({B}, {T}, {tlab.shape[1]})"] = \
-        event_median_ms(lambda: ctc._launch(lp.contiguous(), lab32, len32,
-                                            True), 50)
+        prof.event_ms(lambda: ctc._launch(lp.contiguous(), lab32, len32,
+                                          True), 50)
     recon_g, _ = m.autoencode(image, label, lens, A, frame_lengths=frames,
                               generator=s.generator)
     ct = torch.randn_like(recon_g)
-    times["one group's VJP through autoencode"] = event_median_ms(
+    times["one group's VJP through autoencode"] = prof.event_ms(
         lambda: _grads(recon_g, s.params, ct, retain_graph=True))
     groups = [_grads(recon_g, s.params, ct, retain_graph=True)
               for _ in range(5)]
-    times["balance_and_merge"] = event_median_ms(
+    times["balance_and_merge"] = prof.event_ms(
         lambda: balance_and_merge(groups[0], groups[1:], [0.6, 0.5, 0.4,
                                                           0.75]))
-    times["main Adam step (clip + zero-fill)"] = event_median_ms(
+    times["main Adam step (clip + zero-fill)"] = prof.event_ms(
         lambda: s.opt_main.step(groups[0]))
     return times
-
-
-def profiled_cycle(tr: GanTrainer, batches) -> Dict:
-    """Wall and device busy time of one profiled cycle, the idle share, and
-    device time by group."""
-    cycle(tr, batches)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        cycle(tr, batches)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    kernels = defaultdict(float)
-    for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[evt.key] += _device_us(evt) / 1e3
-    groups = defaultdict(float)
-    for name, ms in kernels.items():
-        groups[tt._group(name)] += ms
-    busy = sum(kernels.values())
-    return {"wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall,
-            "groups_ms": dict(groups), "kernels_ms": dict(kernels)}
 
 
 def report(tr: GanTrainer, batches, card: str = "") -> Dict:
@@ -205,40 +176,34 @@ def report(tr: GanTrainer, batches, card: str = "") -> Dict:
     endless iterator of image batch dicts.  Leaves TF32 off."""
     out = {}
     for on in (False, True):
-        tt.set_tf32(on)
+        prof.set_tf32(on)
         key = "tf32" if on else "f32"
         times = lesson_times(tr, batches)
         out[f"lesson_ms_{key}"] = times
         out[f"lines_per_s_{key}"] = B * 7 * 1e3 / times["cycle"]
-        print(f"GAN lessons (iam_gan_paper, B={B}, 64x{tt.W}, f32, TF32 "
+        print(f"GAN lessons (iam_gan_paper, B={B}, 64x{prof.W}, f32, TF32 "
               f"{'on' if on else 'off'}): "
               + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
               + f"; {out[f'lines_per_s_{key}']:.1f} GAN-trained lines/s "
               f"{card}", flush=True)
-    tt.set_tf32(False)
+    prof.set_tf32(False)
     layers = layer_times(tr, next(batches))
     for k, v in layers.items():
         print(f"  {k:48s} {v:9.3f} ms (B={B}, TF32 off) {card}")
-    win = profiled_cycle(tr, batches)
-    busy = win["busy_ms"]
-    print(f"profiled cycle: wall {win['wall_ms']:.3f} ms, device busy "
-          f"{busy:.3f} ms, idle share {win['idle_share']:.3f} {card}")
-    for g, ms in sorted(win["groups_ms"].items(), key=lambda kv: -kv[1]):
-        print(f"  group {g:16s} {ms:9.3f} ms  {ms / busy:6.1%} of busy")
-    for name, ms in sorted(win["kernels_ms"].items(),
-                           key=lambda kv: -kv[1])[:12]:
-        print(f"  {ms:9.3f} ms  {name[:110]}")
+    cycle(tr, batches)
+    win = prof.profiled_window(lambda: cycle(tr, batches), n=1)
+    prof.print_window("cycle", win, card=card)
     return {**out, "layers_ms": layers,
             **{k: v for k, v in win.items() if k != "kernels_ms"}}
 
 
 def precision_ms(batches, card: str = "", **weights) -> Dict[str, float]:
-    """Median ms per cycle in each precision (``weights``: the trainers'
+    """ms per cycle in each precision (``weights``: the trainers'
     ``pretrained_hwr`` / ``encoder_weights``); prints the rates."""
-    cycles = tt.by_precision(
+    cycles = prof.by_precision(
         lambda dt: trainer("cuda", dtype=dt, **weights),
-        lambda tr: cycle(tr, batches), event_median_ms, iters=3, warmup=1)
-    print(f"GAN cycle (iam_gan_paper, B={B}, 64x{tt.W}) by precision: "
+        lambda tr: cycle(tr, batches), iters=3, warmup=1)
+    print(f"GAN cycle (iam_gan_paper, B={B}, 64x{prof.W}) by precision: "
           + ", ".join(f"{k} {v:.3f} ms ({B * 7 * 1e3 / v:.1f} lines/s)"
                       for k, v in cycles.items()) + f" {card}", flush=True)
     return cycles
@@ -250,7 +215,7 @@ def main() -> None:
     out = report(tr, batches)
     del tr
     out["cycle_ms_by_precision"] = precision_ms(batches)
-    print(json.dumps({"batch": B, "width": tt.W, **out,
+    print(json.dumps({"batch": B, "width": prof.W, **out,
                       "device": torch.cuda.get_device_name(0)}))
 
 

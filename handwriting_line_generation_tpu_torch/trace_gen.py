@@ -1,9 +1,13 @@
-"""Where the bench generation forward's time goes, split three ways.
+"""Where the paper-width generation forward's time goes, split three ways.
 
 The port's counterpart of the repo-root ``scripts/profile_gen_blocks.py``,
 ``scripts/ab_gen_variants.py`` and ``scripts/profile_gen.py`` (which stay
-JAX), on the bench configuration (:mod:`.bench`: paper width, bfloat16,
-the fused epilogue, 512 lines at ``spaced_len`` 192, i.e. 64 x 768 px):
+JAX), on the bench configuration (:func:`paper_config`: num_class 80,
+style_dim 128, gen dim 256, appended style, spacer dim 128 with
+duplicates, no recognizer or discriminator, whole-network bfloat16, the
+fused epilogue; seeded random weights; 512 copies of a 35-character line
+at ``spaced_len`` 192, i.e. 64 x 768 px; the benchmark's
+``gen_paper_b512`` cell runs the same model):
 
 * ``blocks``: each ``StyledConvBlock`` of the generator trunk alone, on the
   input it receives in the forward (its epilogues through the kernel), and
@@ -19,8 +23,8 @@ the fused epilogue, 512 lines at ``spaced_len`` 192, i.e. 64 x 768 px):
   ten noise draws alone.  The shipped model does not change.
 
 Each arm's time is the median over ``--rounds`` rounds, the arms in turn
-within a round, of CUDA events around ``--iters`` calls after a warm-up
-(the host clock around synchronized calls with ``--device cpu``).
+within a round, of :func:`.profiling.event_ms` over ``--iters`` calls
+after a warm-up (the host clock around the calls with ``--device cpu``).
 
     python -m handwriting_line_generation_tpu_torch.trace_gen \\
         [blocks|ab|attribution|all] [--batch 512] [--iters 10] \\
@@ -36,38 +40,60 @@ import contextlib
 import json
 import statistics
 import sys
-import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
-from handwriting_line_generation_tpu_torch import bench
+from handwriting_line_generation_tpu_torch.charset import IAM_CHARSET
+from handwriting_line_generation_tpu_torch.config import (
+    DiscriminatorConfig, GeneratorConfig, HWRConfig, ModelConfig,
+    SpacerConfig, StyleConfig,
+)
+from handwriting_line_generation_tpu_torch.inference.generate import (
+    GenerationSession, cast_params_bf16,
+)
+from handwriting_line_generation_tpu_torch.init import init_model
 from handwriting_line_generation_tpu_torch.models import generator as gen
 from handwriting_line_generation_tpu_torch.ops import gen_epilogue, rows
 from handwriting_line_generation_tpu_torch.ops.spacing import insert_spaces
+from handwriting_line_generation_tpu_torch.profiling import event_ms
+
+TEXT = "The quick brown fox jumps over dogs"      # 35 chars
+SPACED_LEN = 192                                  # -> 64 x 768 px lines
+STYLE_DIM = 128
 
 
-def time_ms(fn: Callable[[], object], iters: int, device) -> float:
-    """Milliseconds per call of ``fn`` over ``iters`` calls: CUDA events
-    on the card, the host clock around the calls on the CPU (whose ops
-    return done)."""
-    if torch.device(device).type == "cuda":
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / iters
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    return (time.perf_counter() - t0) * 1e3 / iters
+def paper_config(fused_epilogue: bool = True) -> ModelConfig:
+    """The paper-width generation model, bfloat16, fused epilogue."""
+    return ModelConfig(
+        num_class=80,
+        style=StyleConfig(style_dim=STYLE_DIM, dim=64, char_dim=128,
+                          window=2),
+        generator=GeneratorConfig(dim=256, append_style=True,
+                                  fused_epilogue=fused_epilogue),
+        discriminator=DiscriminatorConfig(enabled=False),
+        spacer=SpacerConfig(dim=128, count_duplicates=True),
+        hwr=HWRConfig(kind="none"),
+        compute_dtype="bfloat16",
+    )
+
+
+def build(batch: int = 512, device=None, seed: int = 0
+          ) -> Tuple[GenerationSession, torch.Tensor, torch.Tensor,
+                     torch.Tensor]:
+    """Session on ``device`` (default cuda) with seeded bf16 weights, and
+    ``(labels, lens, styles)`` for ``batch`` copies of :data:`TEXT`."""
+    model = cast_params_bf16(init_model(paper_config(), seed))
+    session = GenerationSession(model, IAM_CHARSET, device=device)
+    labels, lens = session.encode_texts([TEXT] * batch)
+    styles = np.random.default_rng(seed + 1).standard_normal(
+        (batch, STYLE_DIM)).astype(np.float32)
+    return session, labels, lens, torch.from_numpy(styles).to(session.device)
 
 
 def median_ms(arms: Dict[str, Callable[[], object]], iters: int,
-              rounds: int, device) -> Dict[str, float]:
+              rounds: int) -> Dict[str, float]:
     """Each arm's median ms per call over ``rounds`` rounds, the arms
     alternated within each round, after one warm-up call of each."""
     for fn in arms.values():
@@ -76,7 +102,7 @@ def median_ms(arms: Dict[str, Callable[[], object]], iters: int,
     for r in range(rounds):
         order = list(arms) if r % 2 == 0 else list(arms)[::-1]
         for k in order:
-            times[k].append(time_ms(arms[k], iters, device))
+            times[k].append(event_ms(arms[k], iters, warmup=0))
     return {k: statistics.median(v) for k, v in times.items()}
 
 
@@ -99,7 +125,7 @@ def block_inputs(session, labels, lens, styles) -> List[tuple]:
     try:
         with torch.no_grad():
             session.forward(labels, lens, styles,
-                            spaced_len=bench.SPACED_LEN, seed=0)
+                            spaced_len=SPACED_LEN, seed=0)
     finally:
         for h in hooks:
             h.remove()
@@ -130,7 +156,7 @@ def blocks(session, labels, lens, styles, iters: int, rounds: int) -> Dict:
     with torch.no_grad():
         for name, fn in arms.items():
             info[name]["epilogue_launches"] = _launches(fn)
-        times = median_ms(arms, iters, rounds, dev)
+        times = median_ms(arms, iters, rounds)
     for name, ms in times.items():
         info[name]["ms"] = ms
     info["total_isolated_ms"] = sum(times.values())
@@ -171,7 +197,7 @@ def ab(session, labels, lens, styles, iters: int, rounds: int) -> Dict:
         def run():
             _set_variant(model, phase, fused)
             return session.forward(labels, lens, styles,
-                                   spaced_len=bench.SPACED_LEN, seed=0)
+                                   spaced_len=SPACED_LEN, seed=0)
         return run
     arms = {name: arm(p, f) for name, p, f in AB_ARMS}
     launches, diff = {}, {}
@@ -181,7 +207,7 @@ def ab(session, labels, lens, styles, iters: int, rounds: int) -> Dict:
         d = (fn()[0].float() - base).abs()
         launches[name] = gen_epilogue.block_epilogue.launches - n0
         diff[name] = (float(d.mean()), float(d.max()))
-    times = median_ms(arms, iters, rounds, session.device)
+    times = median_ms(arms, iters, rounds)
     _set_variant(model, False, True)
     return {name: {"ms": ms, "lines_per_s": B * 1e3 / ms,
                    "epilogue_launches": launches[name],
@@ -200,10 +226,10 @@ def attribution(session, labels, lens, styles, iters: int,
         counts = session._counts(labels, styles)
         spaced, _ = insert_spaces(
             labels, lens, counts, torch.Generator(dev).manual_seed(0),
-            max_len=bench.SPACED_LEN, count_std=0.0, dup_std=0.0,
+            max_len=SPACED_LEN, count_std=0.0, dup_std=0.0,
             count_duplicates=model.cfg.spacer.count_duplicates)
     draw = torch.Generator(dev).manual_seed(0)
-    planes = noise_planes(g, labels.shape[0], bench.SPACED_LEN, draw,
+    planes = noise_planes(g, labels.shape[0], SPACED_LEN, draw,
                           g.dtype, dev)
 
     def generator(noise=None, blur=True):
@@ -215,16 +241,16 @@ def attribution(session, labels, lens, styles, iters: int,
                     generator=None if noise is not None else draw)
         return run
     arms = {"full": lambda: session.forward(
-                labels, lens, styles, spaced_len=bench.SPACED_LEN, seed=0),
+                labels, lens, styles, spaced_len=SPACED_LEN, seed=0),
             "generator": generator(),
             "generator_noise_given": generator(planes),
             "generator_no_blur": generator(blur=False),
             "trunk": generator(planes, blur=False),
             "noise_draws": lambda: noise_planes(
-                g, labels.shape[0], bench.SPACED_LEN, draw, g.dtype, dev)}
+                g, labels.shape[0], SPACED_LEN, draw, g.dtype, dev)}
     with torch.no_grad():
         launches = {k: _launches(fn) for k, fn in arms.items()}
-        t = median_ms(arms, iters, rounds, dev)
+        t = median_ms(arms, iters, rounds)
     return {"arms_ms": t, "epilogue_launches": launches,
             "spacer_insert_spaces_ms": t["full"] - t["generator"],
             "noise_ms": t["generator"] - t["generator_noise_given"],
@@ -253,8 +279,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--device", default="cuda")
     a = ap.parse_args(sys.argv[1:] if argv is None else argv)
-    session, labels, lens, styles = bench.build(a.batch, device=a.device)
-    out = {"batch": a.batch, "spaced_len": bench.SPACED_LEN,
+    session, labels, lens, styles = build(a.batch, device=a.device)
+    out = {"batch": a.batch, "spaced_len": SPACED_LEN,
            "device": (torch.cuda.get_device_name(session.device)
                       if session.device.type == "cuda" else "cpu")}
     for what, fn in (("blocks", blocks), ("ab", ab),

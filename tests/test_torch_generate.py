@@ -27,7 +27,6 @@ from handwriting_line_generation_tpu.inference.generate import (
 )
 from handwriting_line_generation_tpu.models.hw_with_style import \
     HWWithStyle as JHWWithStyle
-from handwriting_line_generation_tpu_torch import bench
 from handwriting_line_generation_tpu_torch.charset import IAM_CHARSET
 from handwriting_line_generation_tpu_torch.config import (
     DiscriminatorConfig, GeneratorConfig, HWRConfig, ModelConfig,
@@ -37,6 +36,8 @@ from handwriting_line_generation_tpu_torch.convert import convert_params
 from handwriting_line_generation_tpu_torch.inference.generate import (
     GenerationSession, cast_params_bf16, to_uint8,
 )
+from handwriting_line_generation_tpu_torch.inference.styles import \
+    StyleExtractor
 from handwriting_line_generation_tpu_torch.init import init_params
 from handwriting_line_generation_tpu_torch.models.hw_with_style import (
     HWWithStyle, pack_style, space_style, unpack_style,
@@ -195,7 +196,7 @@ def test_entry_points_need_cuda_or_explicit_cpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         GenerationSession(HWWithStyle(tcfg), IAM_CHARSET)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        bench.build(2)
+        StyleExtractor(HWWithStyle(tcfg))
 
 
 # modules of the recognition, style, autoencoder, record-source and
@@ -204,7 +205,7 @@ HWR_MODULES = ("ops.ctc", "ops.augment", "models.hwr", "training.hwr_trainer",
                "training.train_state", "utils.error_rates",
                "utils._editdistance", "utils.train_log", "ops.align",
                "models.char_style", "models.layers", "inference.styles",
-               "data.datasets", "trace_style", "models.autoencoder",
+               "data.datasets", "profiling", "models.autoencoder",
                "training.auto_trainer", "training.loop", "utils.checkpoint",
                "trace_auto", "data.imageops", "data.synthetic", "data.iam",
                "data.rimes", "utils.png", "train", "inference.eval",
@@ -218,7 +219,7 @@ HWR_MODULES = ("ops.ctc", "ops.augment", "models.hwr", "training.hwr_trainer",
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port, its bench and chip_smoke.py
+    """Importing every module of the port, its tools and chip_smoke.py
     leaves jax, flax, cv2, PIL, matplotlib and the JAX package out of
     sys.modules."""
     code = (

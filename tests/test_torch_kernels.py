@@ -532,7 +532,7 @@ def test_paper_discriminator_forward_backward(cuda):
     (TF32 off), and its forward + backward time by CUDA events."""
     from handwriting_line_generation_tpu_torch.config import ModelConfig
     from handwriting_line_generation_tpu_torch.init import init_model
-    from handwriting_line_generation_tpu_torch.trace_train import event_ms
+    from handwriting_line_generation_tpu_torch.profiling import event_ms
     cpu = init_model(ModelConfig(), seed=0).discriminator
     dev = init_model(ModelConfig(), seed=0).discriminator.to(cuda)
     g = torch.Generator().manual_seed(0)
